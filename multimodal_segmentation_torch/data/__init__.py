@@ -1,0 +1,6 @@
+"""Data layer: numpy containers, the synthetic CHAOS-shaped fixture."""
+
+from multimodal_segmentation_torch.data.containers import Data, MultimodalPairedData
+from multimodal_segmentation_torch.data.loader_factory import init_loader
+
+__all__ = ["Data", "MultimodalPairedData", "init_loader"]

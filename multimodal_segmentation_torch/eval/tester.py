@@ -1,0 +1,112 @@
+"""Test-time evaluation (reference model_tester.py:13-102).
+
+Port of multimodal_segmentation_tpu/eval/tester.py: per modality x fusion
+type {simple, def, max} x {expert-paired, randomised pairs}, per-volume
+binarised Dice (overall and per organ) written to results.csv. Volumes are
+zero-padded to the split's longest, as in the JAX package, and the padding
+is stripped before the Dice. The PNG sample grids are still to be ported
+(ROADMAP.md, queue A).
+"""
+
+import logging
+import os
+
+import numpy as np
+
+from multimodal_segmentation_torch import losses
+from multimodal_segmentation_torch.data.loader_factory import init_loader
+from multimodal_segmentation_torch.models import full_f32_matmuls
+from multimodal_segmentation_torch.models.dafnet import resolve_device
+
+log = logging.getLogger("model_tester")
+
+
+class ModelTester:
+    def __init__(self, model, conf, device="cuda"):
+        if conf.eval_dtype and conf.eval_dtype != conf.compute_dtype:
+            raise NotImplementedError(
+                "eval_dtype is not ported yet (ROADMAP.md, queue A)"
+            )
+        self.conf = conf
+        self.model = model
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            full_f32_matmuls()
+
+    def run(self):
+        for modi, mod in enumerate(self.model.modalities):
+            log.info("Evaluating model on test data for %s", mod)
+            self.test_modality(mod, modi)
+
+    def _folder(self, modality, suffix=""):
+        folder = os.path.join(
+            self.conf.folder,
+            "test_results_%s_%s_%s" % (self.conf.test_dataset, modality, suffix),
+        )
+        os.makedirs(folder, exist_ok=True)
+        return folder
+
+    def test_modality(self, modality, modality_index):
+        conf = self.conf
+        test_loader = init_loader(conf.test_dataset)
+        test_loader.modalities = list(conf.modality)
+        test_data = test_loader.load_all_modalities_concatenated(
+            conf.split, "test", conf.image_downsample
+        )
+        test_data.crop(conf.input_hw)
+
+        for t in ("simple", "def", "max"):
+            self.test_modality_type(
+                self._folder(modality, t), modality_index, t, test_loader, test_data
+            )
+
+        test_data.randomise_pairs(length=2, seed=conf.seed)
+        for t in ("simple", "def", "max"):
+            self.test_modality_type(
+                self._folder(modality, t + "_rand"),
+                modality_index,
+                t,
+                test_loader,
+                test_data,
+            )
+
+    def test_modality_type(self, folder, modality_index, ftype, test_loader, test_data):
+        vols = test_data.volumes()
+        max_len = max(
+            test_data.get_volume_images_modi(0, v).shape[0] for v in vols
+        )
+
+        im_dice = {}
+        with open(os.path.join(folder, "results.csv"), "w") as f:
+            f.write(
+                "Vol, Dice, "
+                + ", ".join("Dice%d" % i for i in range(test_loader.num_masks))
+                + "\n"
+            )
+            for v in vols:
+                x1 = test_data.get_volume_images_modi(0, v)
+                x2 = test_data.get_volume_images_modi(1, v)
+                vol_mask = test_data.get_volume_masks_modi(modality_index, v)
+                n = x1.shape[0]
+                pad = max_len - n
+                x1p = np.pad(x1, ((0, pad), (0, 0), (0, 0), (0, 0)))
+                x2p = np.pad(x2, ((0, pad), (0, 0), (0, 0), (0, 0)))
+                prd = self.model.predict_mask(
+                    modality_index, ftype, [x1p, x2p], device=self.device
+                ).cpu().numpy()[:n]
+
+                im_dice[v] = losses.dice_np(vol_mask, prd, binarise=True)
+                sep = [
+                    losses.dice_np(
+                        vol_mask[..., i : i + 1], prd[..., i : i + 1], binarise=True
+                    )
+                    for i in range(test_loader.num_masks)
+                ]
+                f.write(
+                    "%s, %.3f, " % (v, im_dice[v])
+                    + ", ".join("%.3f" % s for s in sep)
+                    + "\n"
+                )
+
+        print("%s - Dice score: %.3f" % (ftype, np.mean(list(im_dice.values()))))
+        return im_dice
