@@ -1,5 +1,5 @@
-"""Model assemblies. The port has DAFNet inference so far; MMSDNet and the
-training losses are still to be ported (ROADMAP.md, queue A)."""
+"""Model assemblies. The port has DAFNet (inference and the expert-pairing
+training losses); MMSDNet is still to be ported (ROADMAP.md, queue A)."""
 
 import torch
 

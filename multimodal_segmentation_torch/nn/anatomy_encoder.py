@@ -60,19 +60,22 @@ class DualAnatomyEncoder(nn.Module):
         self.shared_up = UNetUp(filters, downsample, norm)
         self.conv_anatomy = Conv2d(filters, out_channels, 1)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, pair_groups=1):
         """Encode both modalities with one pass through the shared path on
-        the interleaved (2B, ...) stack."""
+        the interleaved (2B, ...) stack. In train mode every BatchNorm keeps
+        per-modality statistics: `pair_groups` groups on each private path,
+        2 * pair_groups on the shared path (anatomy_encoder.py:98-133)."""
         if x1.shape[0] != x2.shape[0]:
             raise ValueError(
                 "DualAnatomyEncoder requires equal batch sizes per modality: "
                 f"got {x1.shape[0]} vs {x2.shape[0]}"
             )
-        h1, skips1 = self.down1(x1.to(self.dtype))
-        h2, skips2 = self.down2(x2.to(self.dtype))
+        h1, skips1 = self.down1(x1.to(self.dtype), pair_groups)
+        h2, skips2 = self.down2(x2.to(self.dtype), pair_groups)
         h = batch_interleave([h1, h2])
         skips = [batch_interleave([a, b]) for a, b in zip(skips1, skips2)]
-        h = self.shared_up(self.shared_bottleneck(h), skips)
+        g = 2 * pair_groups
+        h = self.shared_up(self.shared_bottleneck(h, g), skips, g)
         s = _anatomy_head(self.conv_anatomy, h, self.rounding, self.dtype)
         s1, s2 = batch_deinterleave(s, 2)
         return s1, s2

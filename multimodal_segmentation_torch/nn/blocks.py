@@ -1,5 +1,5 @@
-"""Shared building blocks, inference side: convs, BatchNorm with running
-statistics, conv blocks, upsampling, pooling.
+"""Shared building blocks: convs, grouped BatchNorm, conv blocks,
+upsampling, pooling.
 
 Port of multimodal_segmentation_tpu/nn/blocks.py (reference
 models/unet.py:94-101, utils/model_utils.py:6-24). Tensors are NCHW.
@@ -24,27 +24,41 @@ def _variance_scaling_(w, scale, fan_in, generator):
     nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-class Conv2d(nn.Conv2d):
-    """Flax nn.Conv counterpart: stride 1, 'SAME' (odd kernels: symmetric
-    pad k//2) or 'VALID' padding, he_normal or lecun_normal kernels."""
+def _fan(init_kind, fan_in, fan_out):
+    """(scale, fan) of Flax's he_normal, lecun_normal and glorot_normal."""
+    if init_kind == "he_normal":
+        return 2.0, fan_in
+    if init_kind == "glorot_normal":
+        return 1.0, (fan_in + fan_out) / 2.0
+    return 1.0, fan_in
 
-    def __init__(self, in_ch, out_ch, k, padding="SAME", init="lecun_normal"):
-        super().__init__(in_ch, out_ch, k, padding=k // 2 if padding == "SAME" else 0)
+
+class Conv2d(nn.Conv2d):
+    """Flax nn.Conv counterpart: 'SAME' (odd kernels, stride 1: symmetric
+    pad k//2) or 'VALID' padding, he_normal, lecun_normal or glorot_normal
+    kernels, zero bias."""
+
+    def __init__(self, in_ch, out_ch, k, padding="SAME", init="lecun_normal", stride=1):
+        if padding == "SAME" and stride != 1:
+            raise ValueError("SAME padding is ported for stride 1 only")
+        super().__init__(in_ch, out_ch, k, stride=stride,
+                         padding=k // 2 if padding == "SAME" else 0)
         self.init_kind = init
 
     def flax_init_(self, generator):
-        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
-        scale = 2.0 if self.init_kind == "he_normal" else 1.0
-        _variance_scaling_(self.weight, scale, fan_in, generator)
+        kk = self.kernel_size[0] * self.kernel_size[1]
+        scale, fan = _fan(self.init_kind, self.in_channels * kk, self.out_channels * kk)
+        _variance_scaling_(self.weight, scale, fan, generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        padding=self.padding)
+                        stride=self.stride, padding=self.padding)
 
 
 class Linear(nn.Linear):
-    """Flax nn.Dense counterpart (lecun_normal or zero kernel, zero bias)."""
+    """Flax nn.Dense counterpart (lecun_normal, he_normal or zero kernel,
+    zero bias)."""
 
     def __init__(self, in_features, out_features, init="lecun_normal"):
         super().__init__(in_features, out_features)
@@ -54,27 +68,38 @@ class Linear(nn.Linear):
         if self.init_kind == "zeros":
             nn.init.zeros_(self.weight)
         else:
-            _variance_scaling_(self.weight, 1.0, self.in_features, generator)
+            scale, fan = _fan(self.init_kind, self.in_features, self.out_features)
+            _variance_scaling_(self.weight, scale, fan, generator)
         nn.init.zeros_(self.bias)
 
 
 def flax_init_(module, generator):
-    """Initialise every Conv2d/Linear under `module` as Flax would, drawing
-    from `generator` (BatchNorm keeps weight 1, bias 0, mean 0, var 1)."""
+    """Initialise every module under `module` that has a `flax_init_`
+    (Conv2d, Linear, SpectralConv) as Flax would, drawing from `generator`
+    in module order (BatchNorm keeps weight 1, bias 0, mean 0, var 1)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv2d, Linear)):
+            if m is not module and hasattr(m, "flax_init_"):
                 m.flax_init_(generator)
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over channels with running statistics (eval mode).
+    """BatchNorm over channels with optional per-group batch statistics.
 
-    Port of nn/blocks.py:100-126 with use_running_average: eps 1e-3, f32
-    statistics and affine parameters, normalisation in the input's dtype in
+    Port of nn/blocks.py:18-126 (Keras momentum 0.99, eps 1e-3). Statistics,
+    scale and bias are f32; the normalisation runs in the input's dtype in
     the JAX package's order ((x - mean) * (rsqrt(var + eps) * scale) + bias).
-    Grouped train-mode batch statistics come with the training slice.
+
+    Eval mode normalises with the running statistics. Train mode with
+    `groups=G` normalises the (B*G, C, H, W) input with statistics over
+    each interleaved group (row b*G + g is group g's sample b): per-group
+    f32 mean and biased variance max(E[x^2] - mean^2, 0). It then updates
+    the running statistics once, in place and outside autograd, from the
+    mean of the group moments. nn.BatchNorm2d keeps an unbiased running
+    variance and knows no groups, so it is not used.
     """
+
+    momentum = 0.99
 
     def __init__(self, channels, eps=1e-3):
         super().__init__()
@@ -84,18 +109,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode (grouped) BatchNorm is not ported yet "
-                "(ROADMAP.md, queue A, slice 2); call model.eval()"
-            )
+    def forward(self, x, groups=1):
         dt = x.dtype
-        shape = (1, -1, 1, 1)
-        mean = self.running_mean.to(dt).view(shape)
-        var = self.running_var.to(dt).view(shape)
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt).view(shape)
-        return (x - mean) * mul + self.bias.to(dt).view(shape)
+        n, c = x.shape[:2]
+        if not self.training:
+            groups = 1
+            mean = self.running_mean[None]                   # (1, C)
+            var = self.running_var[None]
+        elif n % groups:
+            raise ValueError("grouped BatchNorm needs batch divisible by "
+                             "groups: batch=%d, groups=%d" % (n, groups))
+        xg = x.reshape((n // groups, groups) + tuple(x.shape[1:]))
+        if self.training:
+            xf = xg.float()
+            mean = xf.mean(dim=(0, 3, 4))                    # (G, C)
+            var = torch.maximum(xf.square().mean(dim=(0, 3, 4)) - mean.square(),
+                                torch.zeros((), device=x.device))
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean.mean(0))
+                self.running_var.mul_(m).add_((1 - m) * var.mean(0))
+        shape = (1, groups, c, 1, 1)
+        mul = torch.rsqrt(var.to(dt).view(shape) + self.eps) * self.weight.to(dt).view(1, 1, c, 1, 1)
+        y = (xg - mean.to(dt).view(shape)) * mul + self.bias.to(dt).view(1, 1, c, 1, 1)
+        return y.reshape(x.shape)
 
 
 def _norm(kind, channels):
@@ -109,8 +146,11 @@ def _norm(kind, channels):
 
 
 def leaky_relu(x, alpha=0.3):
-    """Keras LeakyReLU default slope 0.3."""
-    return F.leaky_relu(x, alpha)
+    """Keras LeakyReLU, default slope 0.3. Written as jax.nn.leaky_relu is,
+    where(x >= 0, x, alpha * x), so that the gradient at exactly 0 is 1 as
+    in the JAX package (F.leaky_relu gives alpha there; exact zeros are
+    common, e.g. a conv over an empty anatomy region)."""
+    return torch.where(x >= 0, x, alpha * x)
 
 
 class ConvBlock(nn.Module):
@@ -123,9 +163,9 @@ class ConvBlock(nn.Module):
         self.Conv_1 = Conv2d(filters, filters, 3, init="he_normal")
         self.Norm_1 = _norm(norm, filters)
 
-    def forward(self, x):
-        x = F.relu(self.Norm_0(self.Conv_0(x)))
-        return F.relu(self.Norm_1(self.Conv_1(x)))
+    def forward(self, x, groups=1):
+        x = F.relu(self.Norm_0(self.Conv_0(x), groups))
+        return F.relu(self.Norm_1(self.Conv_1(x), groups))
 
 
 def upsample2x(x):
@@ -142,8 +182,8 @@ class UpsampleBlock(nn.Module):
         self.Conv_0 = Conv2d(in_ch, filters, 3, init="he_normal")
         self.Norm_0 = _norm(norm, filters)
 
-    def forward(self, x):
-        return self.Norm_0(self.Conv_0(upsample2x(x)))
+    def forward(self, x, groups=1):
+        return self.Norm_0(self.Conv_0(upsample2x(x)), groups)
 
 
 def max_pool2(x):

@@ -21,8 +21,10 @@ class Segmentor(nn.Module):
         self.BatchNorm_1 = BatchNorm(64)
         self.Conv_2 = Conv2d(64, num_masks + 1, 1)
 
-    def forward(self, s):
-        x = F.relu(self.BatchNorm_0(self.Conv_0(s.to(self.dtype))))
-        x = F.relu(self.BatchNorm_1(self.Conv_1(x)))
+    def forward(self, s, groups=1):
+        """`groups`: in train mode the step segments several anatomy maps
+        in one interleaved call, and BatchNorm keeps per-map statistics."""
+        x = F.relu(self.BatchNorm_0(self.Conv_0(s.to(self.dtype)), groups))
+        x = F.relu(self.BatchNorm_1(self.Conv_1(x), groups))
         # softmax in f32: mask probabilities feed Dice
         return torch.softmax(self.Conv_2(x).float(), dim=1)

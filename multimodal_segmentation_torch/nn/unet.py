@@ -1,7 +1,8 @@
 """Configurable-depth UNet halves (port of multimodal_segmentation_tpu/nn/unet.py:17-73).
 
 Split into Down / Bottleneck / Up so the DAFNet dual encoder composes them
-with private down paths and a shared decoder. NCHW tensors.
+with private down paths and a shared decoder. NCHW tensors; `groups` goes
+to every BatchNorm (train-mode per-group statistics).
 """
 
 import torch
@@ -24,10 +25,10 @@ class UNetDown(nn.Module):
             self.add_module("ConvBlock_%d" % level, ConvBlock(in_ch, f, norm))
             in_ch = f
 
-    def forward(self, x):
+    def forward(self, x, groups=1):
         skips = []
         for level in range(self.downsample):
-            s = getattr(self, "ConvBlock_%d" % level)(x)
+            s = getattr(self, "ConvBlock_%d" % level)(x, groups)
             skips.append(s)
             x = max_pool2(s)
         return x, skips
@@ -42,8 +43,8 @@ class UNetBottleneck(nn.Module):
             filters * 2 ** (downsample - 1), filters * 2 ** downsample, norm
         )
 
-    def forward(self, x):
-        return self.ConvBlock_0(x)
+    def forward(self, x, groups=1):
+        return self.ConvBlock_0(x, groups)
 
 
 class UNetUp(nn.Module):
@@ -59,9 +60,9 @@ class UNetUp(nn.Module):
             self.add_module("ConvBlock_%d" % i, ConvBlock(2 * f, f, norm))
             in_ch = f
 
-    def forward(self, x, skips):
+    def forward(self, x, skips, groups=1):
         for i, level in enumerate(reversed(range(self.downsample))):
-            x = getattr(self, "UpsampleBlock_%d" % i)(x)
+            x = getattr(self, "UpsampleBlock_%d" % i)(x, groups)
             x = torch.cat([x, skips[level]], dim=1)
-            x = getattr(self, "ConvBlock_%d" % i)(x)
+            x = getattr(self, "ConvBlock_%d" % i)(x, groups)
         return x

@@ -9,8 +9,8 @@ synchronising, raises if the C function reports a launch error, and adds
 one to its kernel's `launches` count. Nothing is built or loaded when this
 module is imported, so it imports on a machine without CUDA.
 
-The wrappers take CUDA tensors only; the callers in ops/ run the plain
-PyTorch versions for tensors on the CPU.
+The wrappers take CUDA tensors only; the callers in ops/ (tps.py,
+augment.py) run the plain PyTorch versions for tensors on the CPU.
 """
 
 import ctypes
@@ -95,7 +95,13 @@ class Kernel:
 TPS_WARP_FWD = Kernel(
     "tps_warp_fwd", "tps_warp.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 )
-KERNELS = (TPS_WARP_FWD,)
+TPS_WARP_BWD = Kernel(
+    "tps_warp_bwd", "tps_warp_bwd.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+)
+NEAREST_WARP = Kernel(
+    "nearest_warp", "nearest_warp.cu", [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+)
+KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP)
 
 
 def build_all():
@@ -116,9 +122,38 @@ def reset_launch_counts():
         k.launches = 0
 
 
-def _check(cond, msg):
+def _check(cond, msg, name="tps_warp_fwd"):
     if not cond:
-        raise ValueError("tps_warp_fwd: " + msg)
+        raise ValueError("%s: %s" % (name, msg))
+
+
+def _check_vol(vol, name):
+    _check(vol.device.type == "cuda", "vol must be a CUDA tensor, got %s" % vol.device, name)
+    _check(vol.dtype in (torch.float32, torch.bfloat16),
+           "vol must be float32 or bfloat16, got %s" % vol.dtype, name)
+    _check(vol.dim() == 4, "vol must be (B, H, W, C), got %s" % (tuple(vol.shape),), name)
+    B, H, W, C = vol.shape
+    _check(1 <= B <= 65535 and H >= 1 and W >= 1 and C >= 1,
+           "unsupported vol shape %s" % (tuple(vol.shape),), name)
+    _check(vol.is_contiguous(), "vol must be contiguous", name)
+
+
+def _check_locs(locs, vol, name):
+    B, H, W, _ = vol.shape
+    _check(locs.device == vol.device, "locs must be on %s" % vol.device, name)
+    _check(locs.dtype == torch.float32, "locs must be float32, got %s" % locs.dtype, name)
+    _check(tuple(locs.shape) == (B, H * W, 2),
+           "locs must be %s, got %s" % ((B, H * W, 2), tuple(locs.shape)), name)
+    _check(locs.is_contiguous(), "locs must be contiguous", name)
+
+
+def _launch(kernel, device, *args):
+    fn = kernel.fn()
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed with CUDA error %d" % (kernel.name, err))
+    kernel.launches += 1
 
 
 def tps_warp_fwd(vol, wv, cp):
@@ -139,28 +174,80 @@ def tps_warp_fwd(vol, wv, cp):
     Returns:
       (B, H, W, C) warped images in vol's dtype.
     """
-    _check(vol.device.type == "cuda", "vol must be a CUDA tensor, got %s" % vol.device)
-    _check(vol.dtype in (torch.float32, torch.bfloat16),
-           "vol must be float32 or bfloat16, got %s" % vol.dtype)
-    _check(vol.dim() == 4, "vol must be (B, H, W, C), got %s" % (tuple(vol.shape),))
+    _check_vol(vol, "tps_warp_fwd")
     B, H, W, C = vol.shape
-    _check(1 <= B <= 65535 and H >= 2 and W >= 2 and C >= 1,
-           "unsupported vol shape %s" % (tuple(vol.shape),))
+    _check(H >= 2 and W >= 2, "unsupported vol shape %s" % (tuple(vol.shape),))
     for name, t, shape in (("wv", wv, (B, 28, 2)), ("cp", cp, (25, 2))):
         _check(t.device == vol.device, "%s must be on %s" % (name, vol.device))
         _check(t.dtype == torch.float32, "%s must be float32, got %s" % (name, t.dtype))
         _check(tuple(t.shape) == shape,
                "%s must be %s, got %s" % (name, shape, tuple(t.shape)))
-    _check(vol.is_contiguous() and wv.is_contiguous() and cp.is_contiguous(),
-           "inputs must be contiguous")
+    _check(wv.is_contiguous() and cp.is_contiguous(), "inputs must be contiguous")
 
     out = torch.empty_like(vol)
-    fn = TPS_WARP_FWD.fn()
-    with torch.cuda.device(vol.device):
-        err = fn(vol.data_ptr(), wv.data_ptr(), cp.data_ptr(), out.data_ptr(),
-                 B, H, W, C, cp.shape[0], int(vol.dtype == torch.bfloat16),
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("tps_warp_fwd launch failed with CUDA error %d" % err)
-    TPS_WARP_FWD.launches += 1
+    _launch(TPS_WARP_FWD, vol.device, vol.data_ptr(), wv.data_ptr(), cp.data_ptr(),
+            out.data_ptr(), B, H, W, C, cp.shape[0], int(vol.dtype == torch.bfloat16))
+    return out
+
+
+def tps_warp_bwd(vol, locs, g):
+    """Backward of the bilinear warp on the GPU (csrc/tps_warp_bwd.cu).
+
+    Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
+    tps_bilinear_warp_bwd_pallas. Memory-bound: it reads vol, g and locs
+    and writes grad_vol and grad_locs once (49.6 MB at B=12, 192x192, C=8
+    in f32). One thread per sample point; the corner scatter into grad_vol
+    uses f32 atomics, so grad_vol is not bit-reproducible across runs.
+
+    Args:
+      vol: (B, H, W, C) contiguous CUDA tensor, float32 or bfloat16: the
+        forward's source.
+      locs: (B, H*W, 2) contiguous float32 pixel-space (y, x) locations
+        (ops/tps.py::tps_sample_locations).
+      g: (B, H, W, C) contiguous cotangent of the forward output, vol's dtype.
+
+    Returns:
+      (grad_vol, grad_locs): (B, H, W, C) in vol's dtype (accumulated in
+      f32) and (B, H*W, 2) float32.
+    """
+    name = "tps_warp_bwd"
+    _check_vol(vol, name)
+    _check_locs(locs, vol, name)
+    _check(g.device == vol.device and g.dtype == vol.dtype and g.shape == vol.shape,
+           "g must match vol's device, dtype and shape, got %s %s %s"
+           % (g.device, g.dtype, tuple(g.shape)), name)
+    _check(g.is_contiguous(), "g must be contiguous", name)
+    B, H, W, C = vol.shape
+    grad_vol = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
+    grad_locs = torch.empty_like(locs)
+    _launch(TPS_WARP_BWD, vol.device, vol.data_ptr(), locs.data_ptr(), g.data_ptr(),
+            grad_vol.data_ptr(), grad_locs.data_ptr(), B, H, W, C,
+            int(vol.dtype == torch.bfloat16))
+    return grad_vol.to(vol.dtype), grad_locs
+
+
+def nearest_warp(vol, locs):
+    """Nearest-neighbour warp at explicit locations on the GPU
+    (csrc/nearest_warp.cu).
+
+    Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
+    nearest_warp_pallas. y = clip(round_half_even(ly), 0, H-1), x likewise,
+    and the C channels of that pixel are copied bit for bit. Memory-bound:
+    vol and locs read once, the output written once. Not differentiable.
+
+    Args:
+      vol: (B, H, W, C) contiguous CUDA tensor, float32 or bfloat16.
+      locs: (B, H*W, 2) contiguous float32 pixel-space (y, x) locations
+        (ops/augment.py::rotation_locations).
+
+    Returns:
+      (B, H, W, C) in vol's dtype.
+    """
+    name = "nearest_warp"
+    _check_vol(vol, name)
+    _check_locs(locs, vol, name)
+    B, H, W, C = vol.shape
+    out = torch.empty_like(vol)
+    _launch(NEAREST_WARP, vol.device, vol.data_ptr(), locs.data_ptr(), out.data_ptr(),
+            B, H, W, C, vol.element_size())
     return out

@@ -11,11 +11,15 @@ direction the centres are the regular control grid, so the system matrix
 is constant: its float64 inverse is computed once on the host and the
 per-sample solve becomes one small f32 matmul.
 
-`tps_warp` dispatches by device: the fused CUDA kernel
-(ops/cuda_kernels.py::tps_warp_fwd) for a tensor on the GPU, the plain
-version (`_tps_warp_plain`: sample locations + bilinear gather) for a
-tensor on the CPU. The flow stays f32 throughout; reduced-precision
-matmul passes cost ~0.7 px of flow at 192^2.
+`tps_warp` dispatches by device. For a tensor on the GPU it is a
+torch.autograd.Function: the forward launches the fused CUDA kernel
+(ops/cuda_kernels.py::tps_warp_fwd), the backward the warp-backward
+kernel (tps_warp_bwd) and chains its location gradient to the offsets
+through autograd of `tps_sample_locations`, as the JAX package's
+custom_vjp does (ops/tps.py:268-288). For a tensor on the CPU it is the
+plain version (`_tps_warp_plain`: sample locations + bilinear gather),
+differentiated by autograd. The flow stays f32 throughout;
+reduced-precision matmul passes cost ~0.7 px of flow at 192^2.
 """
 
 import functools
@@ -23,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_fwd
+from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd, tps_warp_fwd
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
 
 _EPSILON = 1e-10  # matches reference layers/interpolate_spline.py:27
@@ -122,6 +126,47 @@ def _tps_warp_plain(vol, cp_offsets, cp_dims=(5, 5)):
     return bilinear_sample(vol, locs).reshape(B, H, W, C).to(vol.dtype)
 
 
+def _tps_warp_bwd_plain(vol, locs, g):
+    """Plain PyTorch version of the warp backward (kernel tps_warp_bwd):
+    autograd of the bilinear gather with respect to (vol, locs). floor()
+    has zero gradient, so this is the same function as the kernel's.
+    Returns (grad_vol in vol's dtype, grad_locs f32)."""
+    B, H, W, C = vol.shape
+    with torch.enable_grad():
+        v = vol.detach().float().requires_grad_(True)
+        l = locs.detach().float().requires_grad_(True)
+        out = bilinear_sample(v, l)
+        gv, gl = torch.autograd.grad(out, (v, l), g.reshape(B, H * W, C).float())
+    return gv.to(vol.dtype), gl
+
+
+class _TPSWarpCUDA(torch.autograd.Function):
+    """tps_warp on the GPU: kernel forward, kernel backward for the
+    gather, autograd for the small chain from the locations to the
+    control-point offsets (28x28 solve, flow matmul)."""
+
+    @staticmethod
+    def forward(ctx, vol, cp_offsets, cp_dims):
+        ctx.cp_dims = cp_dims
+        ctx.save_for_backward(vol, cp_offsets)
+        wv = tps_coefficients(cp_offsets, cp_dims)
+        return tps_warp_fwd(vol, wv, control_grid(cp_dims, vol.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, cp_offsets = ctx.saved_tensors
+        B, H, W, C = vol.shape
+        with torch.enable_grad():
+            off = cp_offsets.detach().requires_grad_(True)
+            locs = tps_sample_locations(off, (H, W), ctx.cp_dims)
+        # g arrives through the fuser's permute: not contiguous
+        grad_vol, grad_locs = tps_warp_bwd(vol, locs.detach(), g.contiguous())
+        grad_off = None
+        if ctx.needs_input_grad[1]:
+            (grad_off,) = torch.autograd.grad(locs, off, grad_locs)
+        return (grad_vol if ctx.needs_input_grad[0] else None), grad_off, None
+
+
 def tps_warp(vol, cp_offsets, cp_dims=(5, 5)):
     """Warp a batch of images with a thin-plate-spline deformation.
 
@@ -131,12 +176,11 @@ def tps_warp(vol, cp_offsets, cp_dims=(5, 5)):
 
     Returns:
       (B, H, W, C) warped images in vol's dtype (zeros where sampling falls
-      outside). On the GPU this launches the CUDA kernel; on the CPU it runs
-      the plain version.
+      outside). On the GPU this launches the CUDA kernel, and its gradient
+      the backward kernel; on the CPU it runs the plain version.
     """
     if vol.device.type == "cuda":
-        wv = tps_coefficients(cp_offsets, cp_dims)
-        return tps_warp_fwd(vol, wv, control_grid(cp_dims, vol.device))
+        return _TPSWarpCUDA.apply(vol, cp_offsets, tuple(cp_dims))
     if vol.device.type != "cpu":
         raise ValueError("tps_warp runs on 'cuda' or 'cpu', got %s" % vol.device)
     return _tps_warp_plain(vol, cp_offsets, cp_dims)

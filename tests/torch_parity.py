@@ -16,9 +16,11 @@ multimodal_segmentation_torch/utils/convert.py.
 from collections.abc import Mapping
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
+from multimodal_segmentation_tpu import nn as jnn
 from multimodal_segmentation_tpu.models import build_model as build_jax_model
 from multimodal_segmentation_torch.models import build_model as build_torch_model
 from multimodal_segmentation_torch.utils.convert import load_jax_weights
@@ -68,3 +70,16 @@ def nhwc(t):
 def nchw(a):
     """NHWC numpy -> NCHW torch tensor."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a))).permute(0, 3, 1, 2)
+
+
+def jax_sample_eps(params, key, batch, hw, anatomy_channels=8):
+    """The noise the JAX ModalityEncoder draws from its 'sample' stream
+    for `key`, read out by applying it to zeros with both heads zeroed:
+    then z = 0 + exp(0) * eps = eps. `params` is a DAFNet params tree
+    (only the shapes of its enc_modality part matter)."""
+    p = jax.tree_util.tree_map(np.zeros_like, params["enc_modality"])
+    num_z = p["z_mean"]["bias"].shape[0]
+    z, _, _, _ = jnn.ModalityEncoder(num_z).apply(
+        {"params": p}, jnp.zeros((batch,) + tuple(hw) + (anatomy_channels,)),
+        jnp.zeros((batch,) + tuple(hw) + (1,)), rngs={"sample": key})
+    return np.array(z)
