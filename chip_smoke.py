@@ -9,7 +9,8 @@ Phases, one JSON line each:
                 started together): seconds, ptxas register/spill lines
   kernels       each kernel at the main path's shapes against its plain
                 PyTorch version: max abs error, time, bound, plain and
-                library times (tps_warp_fwd, tps_warp_bwd, nearest_warp)
+                library times (tps_warp_fwd, tps_warp_bwd, nearest_warp,
+                round_ste)
   slice         ModelTester on the synthetic loader's split-0 test volumes,
                 modality t2, fusions simple/def/max on expert and randomised
                 pairs, at full dafnet_chaos width with seeded weights: Dice
@@ -21,21 +22,30 @@ Phases, one JSON line each:
   train         DAFNetSteps.step_supervised at full dafnet_chaos width
                 (batch 6, 192x192, f32) on expert batches from the synthetic
                 loader's split-0 training data: every metric of every step,
-                ms per step and slices/s, kernel launches per step, peak
-                device memory, which parameters moved
+                ms per step and slices/s, kernel launches per step (2/1/3/2),
+                peak device memory, which parameters moved
   train-cross-device
                 one step_supervised at the tiny config on the card and on
                 the CPU, same weights, batch and noise: relative difference
                 of each metric
+  experiment    the training executor at full dafnet_chaos width through the
+                CLI's config (--l_mix 0.5, synthetic data, 12 steps an epoch,
+                SWA from epoch 1): 3 epochs, a resume in a new executor to
+                epoch 4, then `--test` through the CLI on the same folder:
+                ms per epoch (training part), of validation, of a
+                checkpoint save, of the component export and of the image
+                callback; checkpoint bytes, kernel launches, validation
+                logs, test Dice, peak memory, artifacts, the SWA check
 
 Then nvidia-smi's name/power line, the kernels summary and, last, the result
 line. Any failed check raises, and the script exits non-zero without a
 result line; so it does without a CUDA device, or outside the repository.
 
   python3 chip_smoke.py                  # needs one CUDA device
-  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device and train at
-                                         # the tiny config on the CPU with the
-                                         # plain versions; no result line
+  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train and
+                                         # experiment at the tiny config on the
+                                         # CPU with the plain versions; no
+                                         # result line
   python3 chip_smoke.py --profile-train  # only a torch.profiler window over
                                          # full-width train steps on the card:
                                          # device time by kernel and by kind,
@@ -49,6 +59,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +80,10 @@ DENSE1_STD = 1e-2
 # train phase: 2 warm-up steps, then timed steps
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 12
+# experiment phase: steps an epoch, epochs before and after the resume
+EXP_STEPS = 12
+EXP_EPOCHS = 3
+EXP_RESUME_EPOCHS = 4
 
 
 def emit(phase, **fields):
@@ -111,6 +126,22 @@ def time_ms(fn, iters=60, warmup=5, reps=5):
     return runs[len(runs) // 2], [runs[0], runs[-1]]
 
 
+def host_ms(fn, iters=200):
+    """ms of host time per call to enqueue `iters` calls, without waiting
+    for the device: where it reaches the device time, the host's launch
+    path, not the kernel, sets the timed rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    out = 1e3 * (time.perf_counter() - t) / iters
+    torch.cuda.synchronize()
+    return out
+
+
 def rotating(tensors_fn, nbytes, floor=160 * 2 ** 20):
     """Enough copies of the inputs that consecutive calls miss the 50 MB L2."""
     return [tensors_fn() for _ in range(max(2, -(-floor // nbytes)))]
@@ -130,6 +161,7 @@ def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10):
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     return {
         "ms": ms, "ms_spread": ms_spread,
+        "host_ms": host_ms(cycled(kernel)), "library_host_ms": host_ms(cycled(library)),
         "plain_ms": plain_ms, "plain_ms_spread": plain_spread,
         "library_ms": library_ms, "library_ms_spread": library_spread,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -357,6 +389,51 @@ def nearest_warp_phase(torch, dev):
     return res
 
 
+def round_ste_phase(torch, dev):
+    """round_ste against torch.round (the plain version, and also the
+    library call), bit for bit: values with exact .5 ties in f32 and bf16,
+    at the training shape (12, 8, 192, 192: both modalities' anatomies of
+    batch 6), the inference shape (38, 8, 192, 192: a 19-slice volume's two
+    modalities) and a size that is a multiple neither of 128 nor of a
+    block, from an aligned and from an unaligned start. Timed at both
+    shapes in f32."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.ops.cuda_kernels import round_ste
+
+    r = np.random.RandomState(3)
+    shapes = {"train": (12, 8, 192, 192), "inference": (38, 8, 192, 192), "odd": (1000003,)}
+    res, err = {}, 0.0
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        x = (r.rand(n + 1) * 8 - 4).astype(np.float32)
+        x[::4] = np.floor(x[::4]) + 0.5   # exact ties
+        x[:4] = [0.5, 1.5, 2.5, -0.5]
+        x32 = torch.from_numpy(x).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = x32.to(dtype)
+            for view in (xt[:n].reshape(shape), xt[1:].reshape(shape)):
+                got, ref = round_ste(view.contiguous()), torch.round(view)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), "round_ste %s %s differs from torch.round"
+                      % (name, dtype))
+                err = max(err, (got.float() - ref.float()).abs().max().item())
+        check(torch.equal(round_ste(x32[:4]).cpu(), torch.tensor([0.0, 2.0, 2.0, -0.0])),
+              "round_ste ties")
+        if name == "odd":
+            continue
+        # anatomy-like values in [0, 1]; bound: read once, written once,
+        # one operation an element
+        vol = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(dev)
+        nbytes = vol.numel() * 4
+        res[name + "_float32"] = {
+            "shape": list(shape), "max_abs_err": err, "bit_exact": True,
+            **measure(rotating(lambda: vol.clone(), nbytes), round_ste, torch.round,
+                      torch.round, 2 * nbytes, vol.numel(), plain_iters=60),
+        }
+    return res
+
+
 def _seed_weights(torch, model, seed):
     """The seeded changes named at ANATOMY_GAIN / DENSE1_STD."""
     g = torch.Generator().manual_seed(seed)
@@ -439,6 +516,8 @@ def slice_phase(torch, conf, device):
         check(launches["tps_warp_fwd"] == calls > 0,
               "tps_warp_fwd launches %d != def/max calls %d"
               % (launches["tps_warp_fwd"], calls))
+        check(launches["round_ste"] == sum(len(v) for v in times.values()),
+              "round_ste launches %d != predict_mask calls" % launches["round_ste"])
     p50 = {k: 1e3 * sorted(v)[len(v) // 2] for k, v in times.items()}
     out = {
         "config": "dafnet_chaos" if conf.input_hw == (192, 192) else "tiny",
@@ -526,7 +605,8 @@ def train_phase(torch, conf, device, warmup, steps):
             times.append(dt)
     launches = cuda_kernels.launch_counts()
     if on_card:
-        want = {"tps_warp_fwd": 2 * steps, "tps_warp_bwd": steps, "nearest_warp": 3 * steps}
+        want = {"tps_warp_fwd": 2 * steps, "tps_warp_bwd": steps, "nearest_warp": 3 * steps,
+                "round_ste": 2 * steps}
         check(launches == want, "train launches %s != %s" % (launches, want))
     moved = {n: max((p.detach() - b).abs().max().item()
                     for p, b in zip(getattr(model, n).parameters(), before[n])) for n in names}
@@ -602,9 +682,174 @@ def train_cross_device_phase(torch, device):
             "metrics": out, "min_anatomy_distance_from_half": min(seen)}
 
 
+def experiment_phase(torch, device, preset):
+    """The training executor through the CLI's own config: build_config of
+    `--config <preset> --split 0 --l_mix 0.5` on the synthetic data, so that
+    both step_supervised and step_unsupervised run, with EXP_STEPS batches
+    an epoch and SWA from epoch 1. EXP_EPOCHS epochs, then a new executor
+    resumes from the checkpoint to EXP_RESUME_EPOCHS epochs, then
+    `Experiment().run([..., "--test"])` tests the same folder. Everything
+    runs in chip_smoke_out/experiment/, made afresh."""
+    import numpy as np
+
+    from multimodal_segmentation_torch import experiment
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.models.dafnet import DAFNet
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.train.executor import make_executor
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    flags = ["--config", preset, "--split", "0", "--l_mix", "0.5", "--dataset", "synthetic",
+             "--test_dataset", "synthetic", "--device", device]
+    work = os.path.join(OUT_DIR, "experiment")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # predict_mask calls, for the launch check: each runs the anatomy
+    # encoder once; 'def' and 'max' warp once
+    calls = {"predict": 0, "warped": 0}
+    predict = DAFNet.predict_mask
+
+    def counted(self, modality_index, fusion_type, images, device="cuda"):
+        calls["predict"] += 1
+        calls["warped"] += fusion_type in ("def", "max")
+        return predict(self, modality_index, fusion_type, images, device=device)
+
+    def trained(conf):
+        model = build_model(conf, device=device)
+        _seed_weights(torch, model, conf.seed)
+        ex = make_executor(conf, model, device=device)
+        ex.train()
+        return ex
+
+    cwd = os.getcwd()
+    DAFNet.predict_mask = counted
+    try:
+        os.chdir(work)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        conf = experiment.build_config(experiment.read_console_parameters(
+            flags + ["--epochs", str(EXP_EPOCHS)]))
+        conf.steps_per_epoch, conf.swa_start_epoch = EXP_STEPS, 1
+        first = trained(conf)
+        conf.epochs = EXP_RESUME_EPOCHS
+        second = trained(conf)
+        ts = second.final_state
+        sync()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        experiment.Experiment().run(flags + ["--test"])
+        test_s = time.perf_counter() - t0
+        launches = cuda_kernels.launch_counts()
+        folder = os.path.join(work, conf.folder)
+
+        seconds = {**first.epoch_seconds, **second.epoch_seconds}
+        resume_start = min(second.epoch_seconds)
+        check(sorted(first.epoch_seconds) == list(range(EXP_EPOCHS)) and resume_start == EXP_EPOCHS
+              and sorted(seconds) == list(range(EXP_RESUME_EPOCHS)),
+              "epochs run: %s, then %s" % (sorted(first.epoch_seconds), sorted(second.epoch_seconds)))
+        check(first.final_state.step == EXP_EPOCHS * EXP_STEPS * 2 and ts.step == EXP_RESUME_EPOCHS
+              * EXP_STEPS * 2, "steps %d, %d" % (first.final_state.step, ts.step))
+        # SWA from epoch 1: the mean of the live parameters at the end of
+        # epochs 1 .. EXP_RESUME_EPOCHS - 1, which those epochs' checkpoints hold
+        ckpt_dir = os.path.join(folder, "checkpoints")
+        ckpt_epochs = list(range(1, EXP_RESUME_EPOCHS))
+        check(sorted(os.listdir(ckpt_dir)) == ["epoch_%d.pt" % e for e in ckpt_epochs],
+              "checkpoints %s" % sorted(os.listdir(ckpt_dir)))
+        live_sum = {}
+        for e in ckpt_epochs:
+            sd = torch.load(os.path.join(ckpt_dir, "epoch_%d.pt" % e), map_location=device,
+                            weights_only=True)["model"]
+            for n in ts.swa:
+                live_sum[n] = live_sum[n] + sd[n] if n in live_sum else sd[n]
+            del sd
+        swa_err = 0.0
+        for n, avg in ts.swa.items():
+            mean = live_sum[n] / len(ckpt_epochs)
+            swa_err = max(swa_err, ((avg - mean).abs().max() / mean.abs().max().clamp_min(1e-30)).item())
+        del live_sum
+        check(swa_err <= 1e-6, "SWA differs from the mean of the live snapshots by %.3g" % swa_err)
+        with open(os.path.join(folder, "training.csv")) as f:
+            rows = list(csv.DictReader(f))
+        check([int(r["epoch"]) for r in rows] == list(range(EXP_RESUME_EPOCHS)),
+              "training.csv epochs %s" % [r["epoch"] for r in rows])
+        check(all(math.isfinite(float(v)) for r in rows for v in r.values()),
+              "a logged metric is not finite")
+        with open(os.path.join(folder, "test_error.txt")) as f:
+            check(len(f.read().splitlines()) == EXP_RESUME_EPOCHS, "test_error.txt rows")
+        steps = ts.step
+        image_epochs = sum("images" in s for s in seconds.values())
+        if on_card:
+            # per step 2/1/3/2; predict_mask: the anatomy encoder once,
+            # 'def'/'max' one warp; the image callback encodes once more
+            want = {"tps_warp_fwd": 2 * steps + calls["warped"], "tps_warp_bwd": steps,
+                    "nearest_warp": 3 * steps,
+                    "round_ste": 2 * steps + calls["predict"] + image_epochs}
+            check(launches == want, "experiment launches %s != %s" % (launches, want))
+        dice = {}
+        for mod in conf.modality:
+            for suffix in ("", "_rand"):
+                for ftype in ("simple", "def", "max"):
+                    mean, n = _mean_dice(os.path.join(
+                        folder, "test_results_synthetic_%s_%s%s" % (mod, ftype, suffix)))
+                    check(0.0 <= mean <= 1.0 and n > 0, "test Dice %s %s%s" % (mod, ftype, suffix))
+                    dice["%s_%s%s" % (mod, ftype, suffix)] = mean
+        pngs = [os.path.join(dp, f) for dp, _, fs in os.walk(folder) for f in fs
+                if f.endswith(".png")]
+        artifacts = {
+            "training.csv": len(rows),
+            "test_error.txt": True,
+            "models": sorted(os.listdir(os.path.join(folder, "models"))),
+            "checkpoints": sorted(os.listdir(os.path.join(folder, "checkpoints"))),
+            "results.csv": sum(f == "results.csv" for _, _, fs in os.walk(folder) for f in fs),
+            "pngs": len(pngs) if pngs else "skipped: no PIL or matplotlib",
+        }
+        check(len(artifacts["models"]) == 9 and artifacts["results.csv"] == 12,
+              "artifacts %s" % artifacts)
+    finally:
+        DAFNet.predict_mask = predict
+        os.chdir(cwd)
+
+    def ms(part):
+        return [1e3 * seconds[e][part] for e in sorted(seconds) if part in seconds[e]]
+
+    out = {
+        "config": preset,
+        "device": str(device),
+        "folder": os.path.relpath(folder, REPO),
+        "l_mix": conf.l_mix,
+        "steps_per_epoch": EXP_STEPS,
+        "epochs": [EXP_EPOCHS, EXP_RESUME_EPOCHS],
+        "resume_start_epoch": resume_start,
+        "steps": steps,
+        "train_s": train_s,
+        "test_s": test_s,
+        "ms_per_epoch_training": ms("training"),
+        "ms_validation": ms("validation"),
+        "ms_checkpoint_save": ms("checkpoint"),
+        "ms_component_export": ms("export"),
+        "ms_image_callback": ms("images"),
+        "checkpoint_bytes": os.path.getsize(os.path.join(ckpt_dir, "epoch_%d.pt" % ckpt_epochs[-1])),
+        "launches": launches,
+        "predict_mask_calls": calls,
+        "validation_logs": {k: float(v) for k, v in rows[-1].items() if k.startswith("val_")},
+        "training_csv_last": {k: float(v) for k, v in rows[-1].items()},
+        "test_dice": dice,
+        "swa_max_rel_err": swa_err,
+        "artifacts": artifacts,
+        "mean_test_dice": float(np.mean(list(dice.values()))),
+    }
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def _kernel_kind(name):
     n = name.lower()
-    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp")):
+    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste")):
         return "port kernels"
     # cuDNN's FFT-tiling convolutions: complex (cf32) GEMMs, FFTs, tile transforms
     if any(k in n for k in ("cf32", "fft", "dse::", "region_transform")):
@@ -693,6 +938,8 @@ def main(argv=None):
         emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cpu"))
         emit("train", **train_phase(torch, config.tiny_test_config(), "cpu", 1, 2))
         emit("train-cross-device", **train_cross_device_phase(torch, "cpu"))
+        config.PRESETS.setdefault("tiny", config.tiny_test_config)
+        emit("experiment", **experiment_phase(torch, "cpu", "tiny"))
         return 0
 
     if not torch.cuda.is_available():
@@ -725,6 +972,7 @@ def main(argv=None):
         "tps_warp_fwd": warp_fwd_phase(torch, dev),
         "tps_warp_bwd": warp_bwd_phase(torch, dev),
         "nearest_warp": nearest_warp_phase(torch, dev),
+        "round_ste": round_ste_phase(torch, dev),
     }
     emit("kernels", card=smi, **kern)
 
@@ -740,9 +988,13 @@ def main(argv=None):
     train = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
     emit("train", card=smi, **train)
     emit("train-cross-device", **train_cross_device_phase(torch, "cuda"))
+    exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
+    emit("experiment", card=smi, **exp)
 
-    # launches: the slice's (inference) plus the train phase's
-    launches = {k: res["launches"].get(k, 0) + train["launches"][k] for k in train["launches"]}
+    # launches: the slice's (inference), the train phase's and the
+    # experiment phase's
+    paths = {"slice": res["launches"], "train": train["launches"], "experiment": exp["launches"]}
+    launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"
     replaces = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
@@ -753,15 +1005,16 @@ def main(argv=None):
             ("tps_warp_bwd", "tps_warp_bwd.cu", 269, kern["tps_warp_bwd"]["float32"],
              "B=12 192x192 C=8 float32 (training)"),
             ("nearest_warp", "nearest_warp.cu", 416, kern["nearest_warp"]["per_step"],
-             "B=6 192x192 float32, C=10+8+2: the 3 launches of one training step")):
+             "B=6 192x192 float32, C=10+8+2: the 3 launches of one training step"),
+            ("round_ste", "round_ste.cu", 58, kern["round_ste"]["train_float32"],
+             "(12, 8, 192, 192) float32: the anatomy of one training step's loss")):
         summary.append({
             "name": name,
             "route": "cuda",
             "source": src + source,
             "replaces": replaces + str(line),
             "launches": launches[name],
-            "launches_by_path": {"slice": res["launches"].get(name, 0),
-                                 "train": train["launches"][name]},
+            "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],

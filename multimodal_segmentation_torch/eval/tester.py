@@ -2,10 +2,10 @@
 
 Port of multimodal_segmentation_tpu/eval/tester.py: per modality x fusion
 type {simple, def, max} x {expert-paired, randomised pairs}, per-volume
-binarised Dice (overall and per organ) written to results.csv. Volumes are
-zero-padded to the split's longest, as in the JAX package, and the padding
-is stripped before the Dice. The PNG sample grids are still to be ported
-(ROADMAP.md, queue A).
+binarised Dice (overall and per organ) written to results.csv, and PNG
+sample grids per volume (when PIL is installed). Volumes are zero-padded to
+the split's longest, as in the JAX package, and the padding is stripped
+before the Dice.
 """
 
 import logging
@@ -17,6 +17,7 @@ from multimodal_segmentation_torch import losses
 from multimodal_segmentation_torch.data.loader_factory import init_loader
 from multimodal_segmentation_torch.models import full_f32_matmuls
 from multimodal_segmentation_torch.models.dafnet import resolve_device
+from multimodal_segmentation_torch.utils.observability import save_image_grid
 
 log = logging.getLogger("model_tester")
 
@@ -71,6 +72,8 @@ class ModelTester:
             )
 
     def test_modality_type(self, folder, modality_index, ftype, test_loader, test_data):
+        samples = os.path.join(folder, "samples")
+        os.makedirs(samples, exist_ok=True)
         vols = test_data.volumes()
         max_len = max(
             test_data.get_volume_images_modi(0, v).shape[0] for v in vols
@@ -107,6 +110,19 @@ class ModelTester:
                     + ", ".join("%.3f" % s for s in sep)
                     + "\n"
                 )
+                self._plot(samples, v, modality_index, prd, vol_mask, [x1, x2])
 
         print("%s - Dice score: %.3f" % (ftype, np.mean(list(im_dice.values()))))
         return im_dice
+
+    def _plot(self, samples, vol, modality_index, prd_mask, vol_mask, image_list):
+        """Per-slice grids: prediction row over ground-truth row
+        (model_tester.py:87-102)."""
+        vol_folder = os.path.join(samples, "vol_%s" % vol)
+        os.makedirs(vol_folder, exist_ok=True)
+        img = image_list[modality_index]
+        for i in range(img.shape[0]):
+            row1 = [img[i, :, :, 0]] + [prd_mask[i, :, :, j] for j in range(vol_mask.shape[-1])]
+            row2 = [img[i, :, :, 0]] + [vol_mask[i, :, :, j] for j in range(vol_mask.shape[-1])]
+            save_image_grid(os.path.join(vol_folder, "test_vol%s_im%d.png" % (vol, i)),
+                            [row1, row2])

@@ -2,8 +2,9 @@
 
 The port's copy of multimodal_segmentation_tpu/losses.py, formula for
 formula (reference costs.py): the numpy evaluation metrics (:50-83) and
-the training losses (:88-221). Mask and image tensors are NHWC with the
-channels last, as in the JAX package; losses accumulate in f32.
+the on-device validation Dice (:33-47) and the training losses (:88-221).
+Mask and image tensors are NHWC with the channels last, as in the JAX
+package; losses accumulate in f32.
 
 The reference's `make_combined_dice_bce` (costs.py:129-136) calls its
 weighted BCE with SWAPPED arguments; `_reference_weighted_bce` reproduces
@@ -28,6 +29,18 @@ def dice_np(y_true, y_pred, binarise=False, smooth=1e-12):
         (2 * np.sum(y_int, axis=(1, 2, 3)) + smooth)
         / (np.sum(y_true, axis=(1, 2, 3)) + np.sum(y_pred, axis=(1, 2, 3)) + smooth)
     )
+
+
+def dice_torch(y_true, y_pred, binarise=False, smooth=1e-12):
+    """On-device dice_np (losses.py:33-47): the same math on tensors, a 0-d
+    f32 tensor out, so only the scalar leaves the device."""
+    y_true = y_true.float()
+    y_pred = y_pred.float()[..., 0 : y_true.shape[-1]]
+    if binarise:
+        y_pred = torch.round(y_pred)
+    inter = torch.sum(y_true * y_pred, dim=(1, 2, 3))
+    union = torch.sum(y_true, dim=(1, 2, 3)) + torch.sum(y_pred, dim=(1, 2, 3))
+    return torch.mean((2.0 * inter + smooth) / (union + smooth))
 
 
 def dice_np_volume(y_true, y_pred, binarise=False, smooth=1e-12):

@@ -18,7 +18,7 @@ def build_model(conf, device="cuda", seed=None):
     torch.Generator seeded with `seed` (default conf.seed)."""
     dev = resolve_device(device)
     if conf.model == "mmsdnet":
-        raise NotImplementedError("MMSDNet is not ported yet (ROADMAP.md, queue A)")
+        raise NotImplementedError("MMSDNet is not ported yet (ROADMAP.md, queue A, item 4)")
     if conf.model != "dafnet":
         raise ValueError("Unknown model: %s" % conf.model)
     if dev.type == "cuda":

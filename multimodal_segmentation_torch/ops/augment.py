@@ -1,4 +1,4 @@
-"""Rotation augmentation on the device.
+"""Rotation and brightness/contrast augmentation on the device.
 
 Port of multimodal_segmentation_tpu/ops/augment.py:20-157 (reference
 model_executors/base_executor.py:37-78: keras ImageDataGenerator with
@@ -81,3 +81,20 @@ def random_rotate_batch(arrays, thetas):
     widths = [a.shape[-1] for a in arrays]
     out = rotate_batch(torch.cat(arrays, dim=-1), thetas)
     return list(torch.split(out, widths, dim=-1))
+
+
+def random_brightness_contrast(generator, images, brightness=0.2, contrast=0.2):
+    """Per-sample brightness/contrast jitter (ops/augment.py:117-129;
+    reference utils/image_utils.py:100-110): x' = x * (1 + c) + b with
+    b ~ U(-brightness, brightness), c ~ U(-contrast, contrast), drawn from
+    `generator` (on the images' device). images: (B, H, W, C)."""
+    shape = (images.shape[0], 1, 1, 1)
+    dev = images.device
+
+    def uniform(bound):
+        u = torch.rand(shape, generator=generator, device=dev)
+        return u * (2.0 * bound) - bound
+
+    b = uniform(brightness)
+    c = uniform(contrast)
+    return images * (1.0 + c) + b

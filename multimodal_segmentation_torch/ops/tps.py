@@ -53,11 +53,26 @@ def _control_grid_np(dims):
     return grid / (np.asarray(dims, dtype=np.float32) - 1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _constant(make, key, device):
+    """make(key), a numpy array, as a tensor on `device`: copied there once
+    per device, so a training step sends no host tensor to the card. Made
+    outside inference mode, since autograd may save it for backward. The
+    tensor is shared by every caller: read only."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(make(key)).to(device)
+
+
 def control_grid(dims, device="cpu"):
     """Normalised n-D grid of control/query points, row-major (y, x) order:
     dims=(5, 5) gives a (25, 2) f32 tensor with coordinates in [0, 1]
-    (reference layers/stn_spline.py:70-91)."""
-    return torch.from_numpy(_control_grid_np(tuple(dims))).to(device)
+    (reference layers/stn_spline.py:70-91). Shared and read only."""
+    return _constant(_control_grid_np, tuple(dims), torch.device(device))
+
+
+def _pixel_scale_np(vol_shape):
+    """(H - 1, W - 1): normalised (y, x) -> pixel coordinates."""
+    return np.asarray([vol_shape[0] - 1, vol_shape[1] - 1], np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,7 +101,7 @@ def _forward_coefficients(cp_offsets, cp_dims):
     warped = control_grid(cp_dims, device)[None] + cp_offsets   # (B, n, d)
     B, n, d = warped.shape
     rhs = torch.cat([warped, warped.new_zeros((B, d + 1, d))], dim=1)
-    inv = torch.from_numpy(_const_tps_inverse(tuple(cp_dims))).to(device)
+    inv = _constant(_const_tps_inverse, tuple(cp_dims), device)
     return torch.matmul(inv, rhs).contiguous()
 
 
@@ -113,10 +128,7 @@ def tps_sample_locations(cp_offsets, vol_shape, cp_dims=(5, 5)):
     phi_q = _phi(_sq_dist(q_grid, cp_grid))                       # (m, n)
     basis = torch.cat([phi_q, q_grid, torch.ones_like(q_grid[:, :1])], dim=1)
     locs = torch.matmul(basis, wv)                                # (B, m, 2)
-    scale = torch.tensor(
-        [vol_shape[0] - 1, vol_shape[1] - 1], dtype=locs.dtype, device=device
-    )
-    return locs * scale
+    return locs * _constant(_pixel_scale_np, tuple(vol_shape), device)
 
 
 def _tps_warp_plain(vol, cp_offsets, cp_dims=(5, 5)):

@@ -1,7 +1,11 @@
-"""Training: the train state and the per-batch training steps."""
+"""Training: the train state, the per-batch training steps, SWA, early
+stopping and the executor's epoch loop (train/executor.py, imported from
+there)."""
 
+from multimodal_segmentation_torch.train.early_stopping import EarlyStopping
 from multimodal_segmentation_torch.train.state import TrainState, adam, create_train_state
 from multimodal_segmentation_torch.train.steps import DAFNetSteps, MMSDNetSteps, draw_noise, make_steps
+from multimodal_segmentation_torch.train.swa import swa_update
 
-__all__ = ["DAFNetSteps", "MMSDNetSteps", "TrainState", "adam", "create_train_state",
-           "draw_noise", "make_steps"]
+__all__ = ["DAFNetSteps", "EarlyStopping", "MMSDNetSteps", "TrainState", "adam",
+           "create_train_state", "draw_noise", "make_steps", "swa_update"]

@@ -1,11 +1,13 @@
 """Train state: the model (parameters, BatchNorm statistics, spectral
-vectors), one Adam per parameter group, the step count and the random
-generator of the step's noise.
+vectors), one Adam per parameter group, the SWA running average of the
+parameters, the step and epoch counts and the random generator of the
+step's noise.
 
-Port of multimodal_segmentation_tpu/train/state.py:30-44, 88-118 for
-DAFNet. SWA comes with the executor slice (ROADMAP.md, queue A).
+Port of multimodal_segmentation_tpu/train/state.py:17-44, 88-118 for
+DAFNet.
 """
 
+import contextlib
 import dataclasses
 
 import torch
@@ -24,14 +26,42 @@ class TrainState:
     opt_gen: torch.optim.Optimizer                # the six generator components
     opt_disc: dict                                # one Adam per discriminator
     generator: torch.Generator                    # noise of the steps
+    swa: dict                                     # {parameter name: SWA average}
     step: int = 0
+    epoch: int = 0
+
+    @contextlib.contextmanager
+    def swa_weights(self):
+        """Within the block the model's parameters hold the SWA values;
+        after it, the live ones again. The values are copied in place, so
+        the optimizers keep their references to the parameters. Buffers
+        (BatchNorm statistics, spectral `u`) stay live, as in the JAX
+        package's params_for_eval."""
+        params = dict(self.model.named_parameters())
+        with torch.no_grad():
+            live = {n: p.detach().clone() for n, p in params.items()}
+            for n, p in params.items():
+                p.copy_(self.swa[n])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(live[n])
+
+
+def swa_copy(model):
+    """{name: a copy of the parameter}: the SWA average's starting value,
+    never aliasing the parameters."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
 
 
 def create_train_state(model, conf, seed=None):
     """A TrainState around `model`: one Adam for its GEN_COMPONENTS and one
     for each of its DISC_COMPONENTS (lr from d_mask_params or
-    d_image_params), and a torch.Generator on the model's device seeded
-    with `seed` (default conf.seed)."""
+    d_image_params), the SWA average started at the parameters, and a
+    torch.Generator on the model's device seeded with `seed` (default
+    conf.seed)."""
     dev = next(model.parameters()).device
     opt_gen = adam(model.component_parameters(model.GEN_COMPONENTS), conf.lr)
     opt_disc = {}
@@ -39,4 +69,5 @@ def create_train_state(model, conf, seed=None):
         lr = (conf.d_mask_params if name == "d_mask" else conf.d_image_params).lr
         opt_disc[name] = adam(getattr(model, name).parameters(), lr)
     gen = torch.Generator(device=dev).manual_seed(conf.seed if seed is None else seed)
-    return TrainState(model=model, opt_gen=opt_gen, opt_disc=opt_disc, generator=gen)
+    return TrainState(model=model, opt_gen=opt_gen, opt_disc=opt_disc, generator=gen,
+                      swa=swa_copy(model))

@@ -1,0 +1,129 @@
+"""Checkpoint / resume, and the per-component .npz weight export.
+
+Port of multimodal_segmentation_tpu/utils/checkpoint.py:26-108. One
+torch.save file per epoch under <folder>/checkpoints/, the newest
+MAX_TO_KEEP kept, each written under a temporary name and then renamed,
+so a file that exists is whole. A file holds the whole train state: the
+model's state_dict (parameters, BatchNorm statistics, spectral `u`), the
+SWA average, the state_dict of every optimizer, the state of the step
+noise's generator, and the step and epoch counts. It is not an orbax
+checkpoint, and the JAX package cannot read it.
+
+The component export writes <folder>/<component>.npz with the component's
+parameters in the JAX package's layout (Flax paths joined by '/', HWIO
+conv kernels, (in, out) dense kernels), so either package reads the
+other's files.
+"""
+
+import logging
+import os
+import re
+
+import numpy as np
+import torch
+
+from multimodal_segmentation_torch.utils.convert import (
+    component_state_dict,
+    flax_paths,
+    from_flax_paths,
+    params_by_component,
+)
+
+log = logging.getLogger("checkpoint")
+
+_NAME = re.compile(r"^epoch_(\d+)\.pt$")
+MAX_TO_KEEP = 3
+
+
+class CheckpointManager:
+    def __init__(self, folder):
+        self.directory = os.path.abspath(os.path.join(folder, "checkpoints"))
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, epoch):
+        return os.path.join(self.directory, "epoch_%d.pt" % epoch)
+
+    def epochs(self):
+        """The epochs that have a checkpoint, oldest first."""
+        found = (_NAME.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_epoch(self):
+        epochs = self.epochs()
+        return epochs[-1] if epochs else None
+
+    def save(self, epoch, ts):
+        """Write `ts` as the checkpoint of `epoch`; returns its path."""
+        state = {
+            "model": ts.model.state_dict(),
+            "swa": ts.swa,
+            "opt_gen": ts.opt_gen.state_dict(),
+            "opt_disc": {n: o.state_dict() for n, o in ts.opt_disc.items()},
+            "generator": ts.generator.get_state(),
+            "step": ts.step,
+            "epoch": ts.epoch,
+        }
+        path = self._path(epoch)
+        tmp = path + ".tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+        for old in self.epochs()[:-MAX_TO_KEEP]:
+            os.remove(self._path(old))
+        return path
+
+    def restore(self, epoch, ts):
+        """Load the checkpoint of `epoch` into `ts`: into its model, its SWA
+        tensors and the optimizers it already holds (their parameter order
+        is the one they were saved with), so nothing is rebound."""
+        state = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+        ts.model.load_state_dict(state["model"])
+        with torch.no_grad():
+            for n, t in ts.swa.items():
+                t.copy_(state["swa"][n])
+        ts.opt_gen.load_state_dict(state["opt_gen"])
+        for n, opt in ts.opt_disc.items():
+            opt.load_state_dict(state["opt_disc"][n])
+        ts.generator.set_state(state["generator"])
+        ts.step = state["step"]
+        ts.epoch = state["epoch"]
+        return ts
+
+    def save_component_weights(self, folder, params):
+        """Write <folder>/<component>.npz for every component in `params`
+        ({'<component>.<torch key>': tensor}, such as a TrainState's swa),
+        in the JAX key layout (dafnet_executor.py:292-301)."""
+        os.makedirs(folder, exist_ok=True)
+        for name, tree in params_by_component(params).items():
+            np.savez_compressed(os.path.join(folder, "%s.npz" % name), **flax_paths(tree))
+
+    def load_component_weights(self, folder, model):
+        """Inverse of save_component_weights, into `model`'s parameters in
+        place: every top-level module of `model` that has a file; the others
+        are left as they are, as the reference loads each sub-model on its
+        own (models/dafnet.py:54-73). A file must hold exactly the
+        component's parameters, with their shapes.
+
+        Returns the names of the components loaded.
+        """
+        loaded = []
+        for name, _ in model.named_children():
+            path = os.path.join(folder, "%s.npz" % name)
+            if not os.path.exists(path):
+                continue
+            with np.load(path) as saved:
+                sd = component_state_dict(from_flax_paths(dict(saved)))
+            params = dict(getattr(model, name).named_parameters())
+            if sorted(sd) != sorted(params):
+                raise KeyError("%s: arrays %s do not match the component's parameters %s"
+                               % (path, sorted(sd), sorted(params)))
+            for k, p in params.items():
+                if tuple(sd[k].shape) != tuple(p.shape):
+                    raise ValueError("%s: %r shape %s does not match model shape %s"
+                                     % (path, k, tuple(sd[k].shape), tuple(p.shape)))
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(sd[k])
+            loaded.append(name)
+        if loaded:
+            log.info("Loaded component weights: %s", ", ".join(loaded))
+        return loaded

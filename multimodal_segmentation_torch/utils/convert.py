@@ -15,7 +15,12 @@ which carry the Flax auto-names:
 
 Conv kernels go HWIO -> OIHW, Dense kernels (in, out) -> (out, in); the
 spectral vectors `u` keep the JAX package's HWIO order (ops/spectral.py).
-`component_trees` maps a state_dict back.
+`component_trees` maps a state_dict back. For the component .npz files
+(the JAX package's utils/checkpoint.py:50-108), `params_by_component`
+groups model-level parameter names, such as a train state's SWA values,
+into per-component params trees, and `flax_paths` / `from_flax_paths`
+turn a tree into the '/'-joined Flax path strings those files key by and
+back.
 """
 
 from collections.abc import Mapping
@@ -99,6 +104,34 @@ def component_trees(state_dict):
         for m in mods:
             node = node.setdefault(m, {})
         node[jleaf] = np.ascontiguousarray(a)
+    return out
+
+
+def params_by_component(named):
+    """{'<component>.<torch key>': tensor}, as model.named_parameters() or
+    a TrainState's swa holds them -> {component: JAX params tree}."""
+    groups = {}
+    for key, t in named.items():
+        comp, rest = key.split(".", 1)
+        groups.setdefault(comp, {})[rest] = t
+    return {c: component_trees(sd)["params"] for c, sd in groups.items()}
+
+
+def flax_paths(tree):
+    """Nested dict -> {'a/b/leaf': array}, the keys of the JAX package's
+    component .npz files (utils/checkpoint.py:57-61)."""
+    return {"/".join(path): arr for path, arr in _flatten(tree)}
+
+
+def from_flax_paths(flat):
+    """Inverse of flax_paths."""
+    out = {}
+    for key, arr in flat.items():
+        *mods, leaf = key.split("/")
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = arr
     return out
 
 

@@ -1,0 +1,111 @@
+"""The port's experiment CLI against the JAX package's: the same folder
+names and configuration, and an end-to-end run on the CPU at the tiny
+config (train, then `--test` on the same folder)."""
+
+import dataclasses
+import json
+import os
+
+import pytest
+import torch
+
+from multimodal_segmentation_tpu import experiment as jexperiment
+from multimodal_segmentation_torch import config as tconfig
+from multimodal_segmentation_torch import experiment
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--config", "dafnet_config_chaos", "--split", "0"],
+    ["--config", "dafnet_config_chaos", "--split", "0", "--l_mix", "0.5"],
+    ["--config", "dafnet_config_chaos", "--split", "2", "--l_mix", "0.25", "--randomise"],
+    ["--config", "dafnet_config_chaos", "--split", "1", "--automatedpairing", "--randomise"],
+    ["--config", "dafnet_spade_config_chaos", "--split", "2", "--l_mix", "1"],
+    ["--config", "mmsdnet_config_chaos", "--split", "0", "--l_mix", "0", "--epochs", "7",
+     "--dataset", "synthetic", "--test_dataset", "synthetic", "--compute_dtype", "bfloat16"],
+])
+def test_build_config_matches_jax(flags):
+    """Folder name and every configuration field equal JAX build_config's;
+    --device is the port's one extra flag."""
+    conf = experiment.build_config(experiment.read_console_parameters(flags + ["--device", "cpu"]))
+    ref = jexperiment.build_config(jexperiment.read_console_parameters(flags))
+    assert conf.folder == ref.folder
+    assert dataclasses.asdict(conf) == dataclasses.asdict(ref)
+    assert experiment.read_console_parameters(flags).device == "cuda"
+
+
+def test_save_config_writes_json_with_githash(tmp_path):
+    conf = tconfig.get_config("dafnet_config_chaos")
+    conf.folder = str(tmp_path)
+    experiment.save_config(conf)
+    with open(tmp_path / "experiment_configuration.json") as f:
+        d = json.load(f)
+    assert d["model"] == "dafnet" and d["githash"]
+    assert {k: v for k, v in d.items() if k != "githash"} == json.loads(
+        json.dumps(dataclasses.asdict(conf), default=str))
+
+
+def _results(folder):
+    out = {}
+    for sub in sorted(os.listdir(folder)):
+        path = os.path.join(folder, sub, "results.csv")
+        if sub.startswith("test_results_"):
+            with open(path) as f:
+                out[sub] = f.read()
+    return out
+
+
+@pytest.fixture
+def tiny_preset(monkeypatch, tmp_path):
+    """The tiny config as preset 'tiny' (2 steps an epoch), run from
+    tmp_path."""
+    def tiny():
+        return dataclasses.replace(tconfig.tiny_test_config(), steps_per_epoch=2)
+
+    monkeypatch.setitem(tconfig.PRESETS, "tiny", tiny)
+    monkeypatch.chdir(tmp_path)
+    return ["--config", "tiny", "--split", "0", "--dataset", "synthetic",
+            "--test_dataset", "synthetic", "--device", "cpu"]
+
+
+def test_cli_trains_tests_and_restores(tiny_preset, tmp_path):
+    """`--epochs 2` writes logfile.log, training.csv, the component .npz
+    files, the checkpoints, 12 results.csv and the PNGs; a following
+    `--test` run restores the last checkpoint and writes the same
+    results.csv values."""
+    ex = experiment.Experiment().run(tiny_preset + ["--epochs", "2"])
+    folder = tmp_path / "tiny_l1_t1_t2_split0"
+    assert ex.conf.folder == "tiny_l1_t1_t2_split0" and ex.final_state.epoch == 1
+    for name in ("logfile.log", "training.csv", "test_error.txt", "experiment_configuration.json",
+                 "training_loss.png"):
+        assert (folder / name).exists(), name
+    assert len(os.listdir(folder / "models")) == 9
+    assert sorted(os.listdir(folder / "checkpoints")) == ["epoch_0.pt", "epoch_1.pt"]
+    with open(folder / "logfile.log") as f:
+        log = f.read()
+    assert "Epoch 1/2" in log and "Evaluating model on test data for t2" in log
+    first = _results(folder)
+    assert len(first) == 12
+    samples = folder / "test_results_synthetic_t2_max" / "samples"
+    assert any(f.endswith(".png") for _, _, fs in os.walk(samples) for f in fs)
+    assert (folder / "training_images" / "anatomies_epoch_001.png").exists()
+
+    os.remove(folder / "test_results_synthetic_t1_simple" / "results.csv")
+    ex = experiment.Experiment().run(tiny_preset + ["--epochs", "2", "--test"])
+    assert ex.final_state.epoch == 1 and ex.final_state.step == 4
+    assert _results(folder) == first
+
+
+def test_cli_defaults_to_the_card_and_raises_for_unported_models(tiny_preset):
+    flags = [f for f in tiny_preset if f not in ("--device", "cpu")]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            experiment.Experiment().run(flags + ["--epochs", "1"])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        experiment.Experiment().run(["--config", "mmsdnet_config_chaos", "--split", "0",
+                                     "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        experiment.Experiment().run(["--config", "cardiac_3d", "--split", "0", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        experiment.Experiment().run(tiny_preset + ["--automatedpairing"])

@@ -269,6 +269,53 @@ def test_new_wrappers_reject_bad_inputs(cuda):
             cuda_kernels.nearest_warp(*args)
 
 
+# ------------------------------------------------------ round half even (B4)
+
+def _ties(n, seed, dtype, device):
+    """n values with exact .5 ties (every fourth value), integers and
+    random values in [-4, 4)."""
+    r = np.random.RandomState(seed)
+    x = (r.rand(n) * 8 - 4).astype(np.float32)
+    x[::4] = np.floor(x[::4]) + 0.5
+    x[1::8] = np.round(x[1::8])
+    x[:6] = [0.5, 1.5, 2.5, -0.5, -1.5, -2.5]
+    return torch.from_numpy(x).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 7, 1000, 128 * 257 + 3, 12 * 8 * 192 * 192])
+def test_round_ste_kernel_bit_exact(cuda, dtype, n):
+    """Against torch.round (half to even), value for value, at sizes that
+    are and are not multiples of 128, of a 16-byte word and of the block,
+    and from an unaligned start (a view one element in)."""
+    x = _ties(max(n + 1, 6), n, dtype, cuda)
+    for v in (x[:n], x[1:n + 1]):
+        got = cuda_kernels.round_ste(v)
+        assert got.dtype == dtype and got.shape == v.shape
+        assert torch.equal(got, torch.round(v))
+    assert torch.equal(cuda_kernels.round_ste(x[:6]).float().cpu(),
+                       torch.tensor([0.0, 2.0, 2.0, -0.0, -2.0, -2.0]))
+
+
+def test_round_ste_rejects_bad_inputs(cuda):
+    x = torch.rand(4, 8, 6, 6, device=cuda)
+    for bad in (x.transpose(1, 2), x.half(), x.double(), x.cpu()):
+        with pytest.raises(ValueError):
+            cuda_kernels.round_ste(bad)
+
+
+def test_round_ste_identity_gradient_on_cuda(cuda):
+    from multimodal_segmentation_torch.ops.rounding import round_ste
+
+    x = (torch.rand(2, 8, 16, 16, device=cuda) * 2).requires_grad_(True)
+    before = cuda_kernels.ROUND_STE.launches
+    y = round_ste(x.transpose(2, 3))   # non-contiguous: made contiguous first
+    (y * 3.0).sum().backward()
+    assert cuda_kernels.ROUND_STE.launches == before + 1
+    assert torch.equal(y, torch.round(x.transpose(2, 3)))
+    assert torch.equal(x.grad, torch.full_like(x, 3.0))
+
+
 # ----------------------------------------------------------- training step
 
 def _expert_batch(conf, seed=0):
@@ -286,8 +333,8 @@ def _expert_batch(conf, seed=0):
 
 def test_full_width_train_step_runs_through_the_kernels(cuda):
     """One dafnet_chaos step_supervised at batch 6, 192x192: finite
-    metrics, and the kernels launched 2 (warp), 1 (warp backward) and 3
-    (rotations) times."""
+    metrics, and the kernels launched 2 (warp), 1 (warp backward), 3
+    (rotations) and 2 (rounding: the loss and the fake pools) times."""
     conf = dafnet_chaos()
     model = build_model(conf, device="cuda")
     with torch.no_grad():
@@ -298,6 +345,53 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
     cuda_kernels.reset_launch_counts()
     ts, metrics = steps.step_supervised(ts, _expert_batch(conf))
     torch.cuda.synchronize()
-    assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1, "nearest_warp": 3}
+    assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
+                                            "nearest_warp": 3, "round_ste": 2}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
+
+
+def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
+    """One tiny executor epoch (3 steps, validation, image callback,
+    checkpoint) on the card: every kernel launches, B4 among them, and
+    after the first step, which copies ops/tps.py's constants to the card
+    once, no CPU tensor of more than one element enters any operation of a
+    step (0-d ones are Python scalars and Adam's step counts)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from multimodal_segmentation_torch.train.executor import make_executor
+
+    conf = tiny_test_config()
+    conf.dataset_name = conf.test_dataset = "synthetic"
+    conf.folder, conf.epochs, conf.steps_per_epoch = str(tmp_path), 1, 3
+    ex = make_executor(conf, build_model(conf, device="cuda"))
+    on_cpu = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if any(isinstance(a, torch.Tensor) and a.device.type == "cpu" and a.dim() > 0
+                   for a in tree_leaves((args, kwargs))):
+                on_cpu.append(str(func))
+            return func(*args, **kwargs)
+
+    step = ex.steps._step
+    steps_run = []
+
+    def watched(*args):
+        steps_run.append(1)
+        if len(steps_run) == 1:
+            return step(*args)
+        with Watch():
+            return step(*args)
+
+    ex.steps._step = watched
+    cuda_kernels.reset_launch_counts()
+    ts = ex.train()
+    torch.cuda.synchronize()
+    launches = cuda_kernels.launch_counts()
+    assert ts.step == 3 and ts.epoch == 0
+    assert all(n > 0 for n in launches.values()), launches
+    assert launches["round_ste"] >= 2 * 3 + 6   # 3 steps, 6 validation predictions
+    assert on_cpu == []
