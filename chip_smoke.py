@@ -8,9 +8,18 @@ Phases, one JSON line each:
   build         every CUDA kernel built from csrc/ (one nvcc per source, all
                 started together): seconds, ptxas register/spill lines
   kernels       each kernel at the main path's shapes against its plain
-                PyTorch version: max abs error, time, bound, plain and
-                library times (tps_warp_fwd, tps_warp_bwd, nearest_warp,
-                round_ste)
+                PyTorch version: max abs error; per timed call `ms` (CUDA
+                events around 60 queued calls), `device_ms` (what the card
+                ran for a call, summed from a torch.profiler window),
+                `host_ms` (host time to enqueue a call), the bound, the
+                plain version's time and the library call's `library_ms`,
+                `library_device_ms` and `library_host_ms` (tps_warp_fwd;
+                tps_warp_bwd with small, large, zero, scattered,
+                window-edge and border locations, g contiguous and
+                channels-first; `rotation`: a training step's three
+                group rotations, kernel and whole random_rotate_batch
+                path, with wall times; round_ste; `launch_path`: host us
+                of each part of a wrapper's launch)
   slice         ModelTester on the synthetic loader's split-0 test volumes,
                 modality t2, fusions simple/def/max on expert and randomised
                 pairs, at full dafnet_chaos width with seeded weights: Dice
@@ -142,6 +151,50 @@ def host_ms(fn, iters=200):
     return out
 
 
+def device_rows(prof):
+    """[(self device us, name, count)] of the CUDA activity (kernels,
+    memsets, copies) in a torch.profiler window, largest first."""
+    rows = []
+    for e in prof.key_averages():
+        # user annotations (e.g. "Optimizer.step#Adam.step") span kernels
+        # that are rows of their own; kernel names hold "#" only inside
+        # brackets ("{lambda(int)#1}")
+        if getattr(e, "is_user_annotation", False) or re.fullmatch(r"[\w.]+#[\w.]+", e.key):
+            continue
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    return rows
+
+
+def device_ms(fn, iters=30, tries=3):
+    """ms of device time per call: everything the card ran for `iters`
+    calls (every kernel, memset and copy a call launches), summed from a
+    torch.profiler window, over `iters`. Unlike time_ms it leaves out the
+    gaps in which the device waits for the host. A window in which the
+    profiler recorded no device activity at all (seen once in ~40 windows
+    on the H100 machine) is taken again, up to `tries` windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(r[0] for r in device_rows(prof))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("chip_smoke check failed: the profiler saw no device time "
+                       "in %d windows" % tries)
+
+
 def rotating(tensors_fn, nbytes, floor=160 * 2 ** 20):
     """Enough copies of the inputs that consecutive calls miss the 50 MB L2."""
     return [tensors_fn() for _ in range(max(2, -(-floor // nbytes)))]
@@ -159,15 +212,20 @@ def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10):
     plain_ms, plain_spread = time_ms(cycled(plain), iters=plain_iters)
     library_ms, library_spread = time_ms(cycled(library))
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
-    return {
+    out = {
         "ms": ms, "ms_spread": ms_spread,
-        "host_ms": host_ms(cycled(kernel)), "library_host_ms": host_ms(cycled(library)),
+        "device_ms": device_ms(cycled(kernel)),
+        "host_ms": host_ms(cycled(kernel)),
         "plain_ms": plain_ms, "plain_ms_spread": plain_spread,
         "library_ms": library_ms, "library_ms_spread": library_spread,
+        "library_device_ms": device_ms(cycled(library)),
+        "library_host_ms": host_ms(cycled(library)),
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": moved, "flops": flops,
     }
+    out["host_over_library_host"] = out["host_ms"] / out["library_host_ms"]
+    return out
 
 
 def grid_of(torch, locs, H, W):
@@ -255,137 +313,284 @@ def warp_fwd_phase(torch, dev):
     return res
 
 
+def bwd_cases(torch, r, B, H, W, dev):
+    """{case: (B, H*W, 2) f32 locations} for the warp backward:
+      small, large, zero  TPS locations from offsets of +-0.025, +-0.04, 0;
+      scattered           uniform over [-2, H+1) x [-2, W+1): no tile's
+                          corners fit a shared-memory window, and some
+                          points fall outside the image;
+      window_edge         y = i + 0.3, x = 2.7 j + 0.6: a tile's corner box
+                          is 9 x ~88 pixels, just over a C = 8 window, so
+                          part of each tile goes to global atomics; the
+                          right columns fall outside the image;
+      border              the small case with every 7th y and every 5th
+                          x moved onto an edge row or column of the image
+                          or just outside it ({-1, -0.5, 0, H-1, H-0.5}
+                          and W's) or far out (the plain version has no
+                          answer for NaN: the card's tests hold the
+                          kernel's NaN points at 0)."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.ops import tps
+
+    out = {}
+    for case, scale in (("small", 0.05), ("large", 0.08), ("zero", 0.0)):
+        off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * scale).astype(np.float32)).to(dev)
+        out[case] = tps.tps_sample_locations(off, (H, W))
+    lo, hi = np.array([-2.0, -2.0]), np.array([H + 1.0, W + 1.0])
+    out["scattered"] = torch.from_numpy(
+        (lo + r.rand(B, H * W, 2) * (hi - lo)).astype(np.float32)).to(dev)
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    edge = np.stack([i + 0.3, 2.7 * j + 0.6], -1).reshape(1, H * W, 2)
+    out["window_edge"] = torch.from_numpy(np.repeat(edge, B, 0).astype(np.float32)).to(dev)
+    ys = np.array([-1.0, -0.5, 0.0, H - 1.0, H - 0.5, 1e30])
+    xs = np.array([-1.0, -0.5, 0.0, W - 1.0, W - 0.5, -1e30])
+    border = out["small"].cpu().numpy().copy()
+    border[:, ::7, 0] = r.choice(ys, border[:, ::7, 0].shape)
+    border[:, ::5, 1] = r.choice(xs, border[:, ::5, 1].shape)
+    out["border"] = torch.from_numpy(border.astype(np.float32)).to(dev)
+    return out
+
+
 def warp_bwd_phase(torch, dev):
     """tps_warp_bwd at the training shape: B = 12 (both fusion directions
-    of batch 6), 192x192, C = 8 anatomy channels, f32 (and bf16). Both
-    versions get the same locations, so no floor() can flip."""
+    of batch 6), 192x192, C = 8 anatomy channels, f32 (and bf16), on the
+    cases of bwd_cases, with g contiguous and, as the fuser hands it over,
+    channels-first (a permuted view, read through its strides). Both
+    versions get the same locations, so no floor() can flip. Timed at the
+    small case with a contiguous g (as before), with the fuser's g, and
+    at the scattered case."""
     import numpy as np
     import torch.nn.functional as F
 
     from multimodal_segmentation_torch.ops import tps
-    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd as bwd
 
     B, H, W, C = 12, 192, 192, 8
     r = np.random.RandomState(1)
     vol32 = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
     g32 = torch.from_numpy(r.randn(B, H, W, C).astype(np.float32)).to(dev)
+    cases = bwd_cases(torch, r, B, H, W, dev)
+    # the fuser's g: an NCHW tensor seen through permute(0, 2, 3, 1)
+    g_first = g32.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
     res = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         vol, g = vol32.to(dtype), g32.to(dtype)
+        gf = g_first.to(dtype)
         errs, cover = {}, {}
-        for case, scale in (("small", 0.05), ("large", 0.08), ("zero", 0.0)):
-            off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * scale).astype(np.float32)).to(dev)
-            locs = tps.tps_sample_locations(off, (H, W))
-            gv, gl = tps_warp_bwd(vol, locs, g)
+        for case, locs in cases.items():
             rv, rl = tps._tps_warp_bwd_plain(vol, locs, g)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(gv.float()).all() and torch.isfinite(gl).all()),
-                  "non-finite warp gradient (%s)" % case)
-            e_vol = (gv.float() - rv.float()).abs().max().item()
-            e_loc = (gl - rl).abs().max().item()
-            vmax, lmax = rv.float().abs().max().item(), rl.abs().max().item()
-            if dtype == torch.float32:
-                excess = ((gl - rl).abs() - 1e-4 * rl.abs()).max().item()
-                check(excess <= 5e-5, "tps_warp_bwd %s grad_locs error beyond 5e-5 + 1e-4 rel: "
-                      "%.3g" % (case, excess))
-                check(e_vol <= 1e-5 * vmax, "tps_warp_bwd %s grad_vol error %.3g > 1e-5 x %.3g"
-                      % (case, e_vol, vmax))
-            else:
-                check(e_vol <= 3e-2 and e_loc <= 3e-2 * lmax,
-                      "tps_warp_bwd bf16 %s errors %.3g, %.3g" % (case, e_vol, e_loc / lmax))
-            errs[case] = {"grad_vol": e_vol, "grad_vol_max": vmax,
-                          "grad_locs": e_loc, "grad_locs_max": lmax}
-            cover[case] = {"outside_share": float(((locs[..., 0] < -1) | (locs[..., 0] >= H)
-                                                   | (locs[..., 1] < -1)
-                                                   | (locs[..., 1] >= W)).float().mean())}
+            for layout, gg in (("", g), ("_g_channels_first", gf)):
+                gv, gl = bwd(vol, locs, gg)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(gv.float()).all() and torch.isfinite(gl).all()),
+                      "non-finite warp gradient (%s%s)" % (case, layout))
+                e_vol = (gv.float() - rv.float()).abs().max().item()
+                e_loc = (gl - rl).abs().max().item()
+                vmax, lmax = rv.float().abs().max().item(), rl.abs().max().item()
+                if dtype == torch.float32:
+                    excess = ((gl - rl).abs() - 1e-4 * rl.abs()).max().item()
+                    check(excess <= 5e-5, "tps_warp_bwd %s%s grad_locs error beyond 5e-5 + "
+                          "1e-4 rel: %.3g" % (case, layout, excess))
+                    check(e_vol <= 1e-5 * vmax, "tps_warp_bwd %s%s grad_vol error %.3g > "
+                          "1e-5 x %.3g" % (case, layout, e_vol, vmax))
+                else:
+                    check(e_vol <= 3e-2 and e_loc <= 3e-2 * max(lmax, 1e-6),
+                          "tps_warp_bwd bf16 %s%s errors %.3g, %.3g"
+                          % (case, layout, e_vol, e_loc / max(lmax, 1e-6)))
+                errs[case + layout] = {"grad_vol": e_vol, "grad_vol_max": vmax,
+                                       "grad_locs": e_loc, "grad_locs_max": lmax}
+            y, x = locs[..., 0], locs[..., 1]
+            cover[case] = {"outside_share": float(
+                (~((y >= -1) & (y < H) & (x >= -1) & (x < W))).float().mean())}
         # run-to-run: f32 atomics add in another order each run
-        off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
-        locs = tps.tps_sample_locations(off, (H, W))
-        a, b = tps_warp_bwd(vol, locs, g)[0], tps_warp_bwd(vol, locs, g)[0]
+        locs = cases["small"]
+        a, b = bwd(vol, locs, g)[0], bwd(vol, locs, g)[0]
         rerun = (a.float() - b.float()).abs().max().item()
 
         # the library yardstick: grid_sample's backward alone, one retained
         # graph per rotating buffer
         nbytes = vol.numel() * vol.element_size()
-        grid = grid_of(torch, locs, H, W).to(dtype)
-        bufs = []
-        for v, gg in rotating(lambda: (vol.clone(), g.clone()), 2 * nbytes):
-            vv = v.permute(0, 3, 1, 2).detach().requires_grad_(True)
-            gr = grid.detach().requires_grad_(True)
-            out = F.grid_sample(vv, gr, mode="bilinear", padding_mode="zeros",
-                                align_corners=True)
-            bufs.append((v, gg, (out, vv, gr, gg.permute(0, 3, 1, 2))))
 
-        def library(buf):
-            out, vv, gr, gg = buf[2]
-            torch.autograd.grad(out, (vv, gr), gg, retain_graph=True)
+        def timed(locs, layout):
+            grid = grid_of(torch, locs, H, W).to(dtype)
+            bufs = []
+            for v, gg in rotating(lambda: (vol.clone(), g.clone()), 2 * nbytes):
+                vv = v.permute(0, 3, 1, 2).detach().requires_grad_(True)
+                gr = grid.detach().requires_grad_(True)
+                out = F.grid_sample(vv, gr, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+                gk = gg.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) if layout else gg
+                bufs.append((v, gk, (out, vv, gr, gg.permute(0, 3, 1, 2))))
 
-        # bound: vol, g and locs read once, grad_vol and grad_locs written
-        # once; operations per point and channel: 4 weighted scatters and
-        # the two location terms (~16), per point ~20 for the weights
+            def library(buf):
+                out, vv, gr, gg = buf[2]
+                torch.autograd.grad(out, (vv, gr), gg, retain_graph=True)
+
+            # bound: vol, g and locs read once, grad_vol and grad_locs
+            # written once; operations per point and channel: 4 weighted
+            # scatters and the two location terms (~16), per point ~20 for
+            # the weights
+            return measure(bufs, lambda b: bwd(b[0], locs, b[1]),
+                           lambda b: tps._tps_warp_bwd_plain(b[0], locs, b[1]), library,
+                           3 * nbytes + 2 * locs.numel() * 4, B * H * W * (16 * C + 20))
+
         res[name] = {
             "max_abs_err": max(e["grad_vol"] for e in errs.values()),
             "max_abs_err_locs": max(e["grad_locs"] for e in errs.values()),
             "errors": errs, "cases": cover, "rerun_grad_vol_diff": rerun,
-            **measure(bufs, lambda b: tps_warp_bwd(b[0], locs, b[1]),
-                      lambda b: tps._tps_warp_bwd_plain(b[0], locs, b[1]), library,
-                      3 * nbytes + 2 * locs.numel() * 4, B * H * W * (16 * C + 20)),
+            **timed(cases["small"], ""),
         }
-        del bufs
+        if dtype == torch.float32:
+            res[name]["g_channels_first"] = timed(cases["small"], "channels_first")
+            res[name]["scattered"] = timed(cases["scattered"], "")
     return res
 
 
-def nearest_warp_phase(torch, dev):
-    """nearest_warp at the training shapes: B = 6, 192x192, C = 10 (x1, x2,
-    m1, m2), 8 (dm1, dm2) and 2 (dx1, dx2), f32, at angles within +-20
-    degrees; bit-exact against the plain gather for images and masks."""
+# the training step's rotation groups (train/steps.py): per array its
+# channels, in the order random_rotate_batch gets them
+ROTATION_GROUPS = (("x1", 1), ("x2", 1), ("m1", 4), ("m2", 4)), \
+    (("dm1", 4), ("dm2", 4)), (("dx1", 1), ("dx2", 1))
+ROTATION_ANGLES_DEG = (0.0, 20.0, -20.0, 7.3, -13.9, 19.99)
+
+
+def tie_angles(torch, dev, n):
+    """n f32 angles whose sin or cos on `dev` is exactly +-0.5 (the f32
+    neighbours of +-30 and +-60 degrees): on an odd-sized image they put
+    locations on exact .5 ties."""
+    import numpy as np
+
+    found = []
+    for deg in (30.0, -30.0, 60.0, -60.0):
+        t = np.float32(np.radians(deg))
+        cand = (np.array([t]).view(np.int32) + np.arange(-256, 257, dtype=np.int32)).view(np.float32)
+        tt = torch.from_numpy(cand).to(dev)
+        hit = ((torch.sin(tt).abs() == 0.5) | (torch.cos(tt).abs() == 0.5)).cpu().numpy()
+        found += [float(a) for a in cand[hit][:1]]
+    check(len(found) >= 2, "no f32 angle with an exact sin or cos of 0.5")
+    return torch.tensor((found * n)[:n], dtype=torch.float32, device=dev)
+
+
+def _group_arrays(torch, r, B, H, W, group, masks, dtype, dev):
+    import numpy as np
+
+    def one(c):
+        x = (r.rand(B, H, W, c) > 0.7) if masks else (r.rand(B, H, W, c) * 2 - 1)
+        return torch.from_numpy(x.astype(np.float32)).to(dev, dtype)
+    return [one(c) for _, c in group]
+
+
+def _rotation_reference(torch, arrays, thetas):
+    """The rotation as the JAX package and the CPU path compute it: the
+    group concatenated, sampled at rotation_locations by the plain gather,
+    split."""
+    from multimodal_segmentation_torch.ops import augment
+
+    B, H, W, _ = arrays[0].shape
+    out = augment._nearest_warp_plain(torch.cat(arrays, -1),
+                                      augment.rotation_locations(thetas, H, W))
+    return list(torch.split(out, [a.shape[-1] for a in arrays], -1))
+
+
+def rotation_phase(torch, dev):
+    """The training step's rotation path: its three groups
+    (ROTATION_GROUPS: 1+1+4+4, 4+4 and 1+1 channels) at B = 6, 192x192.
+
+    Checks: rotate_group and random_rotate_batch bit-exact against the group
+    concatenated, sampled at rotation_locations by the plain gather and
+    split, and against the kernel's own plain version, for f32 and bf16
+    images and {0,1} masks, at +-20 degrees and between, and at angles with
+    exact .5 ties on an odd-sized (33x33) image.
+
+    Timed, a step's three groups a call: `kernel` the three rotate_group
+    launches (cos/sin made beforehand), `path` the three
+    random_rotate_batch calls from the angles, all they launch included;
+    each with its device time, host time and `wall_ms`, the host clock
+    around the three calls and a synchronize (median of 50). Plain: the
+    reference above; library: grid_sample nearest on each group
+    concatenated beforehand."""
     import numpy as np
     import torch.nn.functional as F
 
     from multimodal_segmentation_torch.ops import augment
-    from multimodal_segmentation_torch.ops.cuda_kernels import nearest_warp
+    from multimodal_segmentation_torch.ops import cuda_kernels as ck
 
     B, H, W = 6, 192, 192
-    r = np.random.RandomState(2)
-    th = torch.from_numpy(np.radians(np.array([0.0, 20.0, -20.0, 7.3, -13.9, 19.99],
-                                              np.float32))).to(dev)
-    locs = augment.rotation_locations(th, H, W)
-    grid = grid_of(torch, locs, H, W)
-
-    def library(v):
-        return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="nearest",
-                             padding_mode="border", align_corners=True)
-
+    r = np.random.RandomState(4)
+    th = torch.from_numpy(np.radians(np.array(ROTATION_ANGLES_DEG, np.float32))).to(dev)
     res = {}
-    for C in (10, 8, 2):
-        imgs = torch.from_numpy((r.rand(B, H, W, C) * 2 - 1).astype(np.float32)).to(dev)
-        masks = torch.from_numpy((r.rand(B, H, W, C) > 0.7).astype(np.float32)).to(dev)
-        err = 0.0
-        for x in (imgs, masks):
-            got, ref = nearest_warp(x, locs), augment._nearest_warp_plain(x, locs)
+    checked, err = 0, 0.0
+    for (b, h, w, angles) in ((B, H, W, th), (4, 33, 33, tie_angles(torch, dev, 4))):
+        cos_t, sin_t = torch.cos(angles), torch.sin(angles)
+        if h == 33:
+            ly = augment.rotation_locations(angles, h, w)
+            res["tie_locations"] = int(((ly - ly.floor()) == 0.5).sum())
+            check(res["tie_locations"] > 0, "the tie angles gave no .5 location")
+        for group in ROTATION_GROUPS:
+            for dtype in (torch.float32, torch.bfloat16):
+                for masks in (False, True):
+                    arrays = _group_arrays(torch, r, b, h, w, group, masks, dtype, dev)
+                    ref = _rotation_reference(torch, arrays, angles)
+                    for got in (ck.rotate_group(arrays, cos_t, sin_t),
+                                augment.random_rotate_batch(arrays, angles),
+                                augment._rotate_group_plain(arrays, cos_t, sin_t)):
+                        torch.cuda.synchronize()
+                        err = max([err] + [(x.float() - y.float()).abs().max().item()
+                                           for x, y in zip(got, ref)])
+                        check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                              "rotate_group %s differs (%dx%d, %s, masks=%s)"
+                              % ([n for n, _ in group], h, w, dtype, masks))
+                    checked += 1
+    res.update(bit_exact=True, groups_checked=checked, max_abs_err=err)
+
+    groups = [_group_arrays(torch, r, B, H, W, g, False, torch.float32, dev)
+              for g in ROTATION_GROUPS]
+    nbytes = sum(a.numel() * 4 for grp in groups for a in grp)
+    bufs = rotating(lambda: [[a.clone() for a in grp] for grp in groups], nbytes)
+    grid = grid_of(torch, augment.rotation_locations(th, H, W), H, W)
+    cat = [[torch.cat(grp, -1).permute(0, 3, 1, 2) for grp in buf] for buf in bufs]
+    cats = {id(buf): c for buf, c in zip(bufs, cat)}
+    cos_t, sin_t = torch.cos(th), torch.sin(th)
+
+    def library(buf):
+        for c in cats[id(buf)]:
+            F.grid_sample(c, grid, mode="nearest", padding_mode="border", align_corners=True)
+
+    def plain(buf):
+        for grp in buf:
+            _rotation_reference(torch, grp, th)
+
+    def path(buf):
+        for grp in buf:
+            augment.random_rotate_batch(grp, th)
+
+    def wall(fn, iters=50):
+        it = itertools.cycle(bufs)
+        fn(next(it))
+        ts = []
+        for _ in range(iters):
             torch.cuda.synchronize()
-            check(torch.equal(got, ref), "nearest_warp differs from its plain version (C=%d)" % C)
-            err = max(err, (got - ref).abs().max().item())
-        lib_share = (library(imgs).permute(0, 2, 3, 1) != nearest_warp(imgs, locs)
-                     ).any(-1).float().mean().item()
-        nbytes = imgs.numel() * 4
-        # bound: vol and locs read once, out written once; ~6 operations a
-        # point (round, clamp, index)
-        res["C%d" % C] = {
-            "max_abs_err": err, "bit_exact": True, "library_pixels_differing": lib_share,
-            **measure(rotating(lambda: imgs.clone(), nbytes), lambda v: nearest_warp(v, locs),
-                      lambda v: augment._nearest_warp_plain(v, locs), library,
-                      2 * nbytes + locs.numel() * 4, B * H * W * 6, plain_iters=20),
-        }
-    # per training step: one launch at each C
-    per_c = [res["C%d" % C] for C in (10, 8, 2)]
-    step = {k: sum(r[k] for r in per_c)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
-    step["max_abs_err"] = max(r["max_abs_err"] for r in per_c)
-    step["bound_by"] = ("bytes" if step["bytes"] / HBM_BYTES_PER_S >= step["flops"] / F32_FLOPS
-                        else "operations")
-    res["per_step"] = step
+            t0 = time.perf_counter()
+            fn(next(it))
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return sorted(ts)[len(ts) // 2]
+
+    # bound: each array read once and each output written once; ~26
+    # operations a point and group (the location, round, clamp, index)
+    work = (2 * nbytes, 3 * B * H * W * 26)
+    def kernel(buf):
+        for grp in buf:
+            ck.rotate_group(grp, cos_t, sin_t)
+
+    res["path"] = {**measure(bufs, path, plain, library, *work, plain_iters=10),
+                   "wall_ms": wall(path)}
+    res["kernel"] = {**measure(bufs, kernel, lambda buf: [
+        augment._rotate_group_plain(grp, cos_t, sin_t) for grp in buf], library, *work,
+        plain_iters=10), "wall_ms": wall(kernel), "max_abs_err": err}
+    res["plain_wall_ms"] = wall(plain)
     return res
 
 
@@ -432,6 +637,40 @@ def round_ste_phase(torch, dev):
                       torch.round, 2 * nbytes, vol.numel(), plain_iters=60),
         }
     return res
+
+
+def launch_path_phase(torch, dev):
+    """Host us a call of each part of a wrapper's launch path, on
+    round_ste at the training shape (12, 8, 192, 192) f32: the
+    current-device test, the raw stream handle, the TORCH_LIBRARY operator
+    that checks, allocates and launches (`entry`), the whole wrapper, and
+    torch.round for comparison, called directly and through torch.ops.
+    Parts that launch are timed as host_ms times them (200 calls, no
+    wait); the others over 20,000 calls."""
+    from multimodal_segmentation_torch.ops import cuda_kernels as ck
+
+    x = torch.rand(12, 8, 192, 192, device=dev)
+    idx = dev.index
+    fn = ck.ROUND_STE.fn()
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+
+    def us(f, iters=20000):
+        t = time.perf_counter()
+        for _ in range(iters):
+            f()
+        return 1e6 * (time.perf_counter() - t) / iters
+
+    parts = {
+        "current_device_test": us(lambda: x.get_device() == torch._C._cuda_getDevice()),
+        "raw_stream": us(lambda: torch._C._cuda_getCurrentRawStream(idx)),
+        "entry": 1e3 * host_ms(lambda: fn(x, stream)),
+        "wrapper": 1e3 * host_ms(lambda: ck.round_ste(x)),
+        "torch_round": 1e3 * host_ms(lambda: torch.round(x)),
+        # the same operator through torch.ops, the way an operator
+        # registered with TORCH_LIBRARY is called from Python
+        "torch_ops_round": 1e3 * host_ms(lambda: torch.ops.aten.round.default(x)),
+    }
+    return {"shape": list(x.shape), "host_us": parts}
 
 
 def _seed_weights(torch, model, seed):
@@ -849,7 +1088,7 @@ def experiment_phase(torch, device, preset):
 
 def _kernel_kind(name):
     n = name.lower()
-    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste")):
+    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste")):
         return "port kernels"
     # cuDNN's FFT-tiling convolutions: complex (cf32) GEMMs, FFTs, tile transforms
     if any(k in n for k in ("cf32", "fft", "dse::", "region_transform")):
@@ -882,20 +1121,7 @@ def train_profile_phase(torch, conf, device, warmup=2, steps=3):
             ts, _ = step(ts, batch)
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
-    rows = []
-    for e in prof.key_averages():
-        # user annotations (e.g. "Optimizer.step#Adam.step") span kernels
-        # that are rows of their own; kernel names hold "#" only inside
-        # brackets ("{lambda(int)#1}")
-        if getattr(e, "is_user_annotation", False) or re.fullmatch(r"[\w.]+#[\w.]+", e.key):
-            continue
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            if us > 0:
-                rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     device_us = sum(r[0] for r in rows)
     check(device_us > 0, "the profiler saw no device time")
     kinds = {}
@@ -924,7 +1150,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(REPO, "multimodal_segmentation_torch")):
         sys.exit("chip_smoke.py: the multimodal_segmentation_torch package is "
-                 "not beside this script; run it from the repository")
+                 "not in %s; run it from the repository" % REPO)
     sys.path.insert(0, REPO)
     import torch
 
@@ -971,8 +1197,9 @@ def main(argv=None):
     kern = {
         "tps_warp_fwd": warp_fwd_phase(torch, dev),
         "tps_warp_bwd": warp_bwd_phase(torch, dev),
-        "nearest_warp": nearest_warp_phase(torch, dev),
+        "rotation": rotation_phase(torch, dev),
         "round_ste": round_ste_phase(torch, dev),
+        "launch_path": launch_path_phase(torch, dev),
     }
     emit("kernels", card=smi, **kern)
 
@@ -1004,8 +1231,9 @@ def main(argv=None):
              "B=24 192x192 C=8 %s (inference)" % main_dtype),
             ("tps_warp_bwd", "tps_warp_bwd.cu", 269, kern["tps_warp_bwd"]["float32"],
              "B=12 192x192 C=8 float32 (training)"),
-            ("nearest_warp", "nearest_warp.cu", 416, kern["nearest_warp"]["per_step"],
-             "B=6 192x192 float32, C=10+8+2: the 3 launches of one training step"),
+            ("nearest_warp", "nearest_warp.cu", 416, kern["rotation"]["kernel"],
+             "B=6 192x192 float32, groups of 1+1+4+4, 4+4 and 1+1 channels: the 3 "
+             "rotate_group launches of one training step"),
             ("round_ste", "round_ste.cu", 58, kern["round_ste"]["train_float32"],
              "(12, 8, 192, 192) float32: the anatomy of one training step's loss")):
         summary.append({
@@ -1017,10 +1245,14 @@ def main(argv=None):
             "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
+            "device_ms": k["device_ms"],
+            "host_ms": k["host_ms"],
             "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            "library_device_ms": k["library_device_ms"],
+            "library_host_ms": k["library_host_ms"],
             "work": work,
         })
     print(smi)

@@ -6,17 +6,24 @@ rotation_range=20, one shared transform for the images and masks of both
 modalities). Nearest-neighbour resampling with edge-clamp fill, rounding
 half to even. Arrays are NHWC (B, H, W, C), as in the JAX package.
 
-`rotate_batch` dispatches by device: the nearest-warp CUDA kernel
-(ops/cuda_kernels.py::nearest_warp) for a tensor on the GPU, the plain
-gather (`_nearest_warp_plain`) for a tensor on the CPU. Both sample at the
-locations of `rotation_locations`, so they agree bit for bit.
+`random_rotate_batch` dispatches by device. On the GPU one launch of the
+nearest-warp kernel rotates a whole group (ops/cuda_kernels.py::
+rotate_group): it reads each array and writes each output directly, with
+no concatenation and no split, and computes each location itself from the
+per-sample cos/sin, in the f32 operation order of `rotation_locations`
+(its plain version is `_rotate_group_plain`). On the CPU the group is
+concatenated, sampled at `rotation_locations` by the plain gather
+(`_nearest_warp_plain`) and split, as the JAX package does.
+`rotate_batch` (one array) samples at `rotation_locations` with the
+nearest_warp kernel on the GPU and the plain gather on the CPU. All of
+them agree bit for bit.
 """
 
 import math
 
 import torch
 
-from multimodal_segmentation_torch.ops.cuda_kernels import nearest_warp
+from multimodal_segmentation_torch.ops.cuda_kernels import MAX_GROUP, nearest_warp, rotate_group
 
 
 def random_rotation_angles(generator, batch, rotation_range_deg=20.0):
@@ -60,6 +67,26 @@ def _nearest_warp_plain(vol, locs):
     return torch.gather(vol.reshape(B, H * W, C), 1, idx).reshape(vol.shape)
 
 
+def _rotate_group_plain(arrays, cos_t, sin_t):
+    """Plain PyTorch version of the fused group rotation (kernel
+    rotate_group): the locations of `rotation_locations` from the given
+    cos/sin, the same f32 operations in the same order, then the gather of
+    `_nearest_warp_plain` on each array."""
+    B, H, W, _ = arrays[0].shape
+    dev = arrays[0].device
+    cy = (H - 1) / 2.0
+    cx = (W - 1) / 2.0
+    dy = torch.arange(H, dtype=torch.float32, device=dev)[:, None] - cy
+    dx = torch.arange(W, dtype=torch.float32, device=dev)[None, :] - cx
+    c = cos_t[:, None, None]
+    s = sin_t[:, None, None]
+    yi = torch.clamp(torch.round(c * dy - s * dx + cy), 0, H - 1).long()
+    xi = torch.clamp(torch.round(s * dy + c * dx + cx), 0, W - 1).long()
+    idx = (yi * W + xi).reshape(B, H * W, 1)
+    return [torch.gather(a.reshape(B, H * W, a.shape[-1]), 1, idx.expand(-1, -1, a.shape[-1]))
+            .reshape(a.shape) for a in arrays]
+
+
 def rotate_batch(batch_imgs, thetas):
     """Rotate a (B, H, W, C) batch by per-sample angles (radians, a (B,)
     tensor on the same device). Not differentiable."""
@@ -74,10 +101,18 @@ def rotate_batch(batch_imgs, thetas):
 
 def random_rotate_batch(arrays, thetas):
     """Rotate every (B, H, W, C_i) array in `arrays` by the same per-sample
-    angles `thetas` (B,): the arrays are concatenated along channels and
-    rotated in one call, then split again (ops/augment.py:132-157)."""
+    angles `thetas` (B,), as the JAX package's random_rotate_batch
+    (ops/augment.py:132-157) does by concatenating along channels, rotating
+    once and splitting. On the GPU: one rotate_group launch per MAX_GROUP
+    arrays, no concatenation. Not differentiable."""
     if not arrays:
         return arrays
+    if arrays[0].device.type == "cuda":
+        th = thetas.float()
+        cos_t, sin_t = torch.cos(th), torch.sin(th)
+        return [out for k in range(0, len(arrays), MAX_GROUP)
+                for out in rotate_group([a.contiguous() for a in arrays[k:k + MAX_GROUP]],
+                                        cos_t, sin_t)]
     widths = [a.shape[-1] for a in arrays]
     out = rotate_batch(torch.cat(arrays, dim=-1), thetas)
     return list(torch.split(out, widths, dim=-1))

@@ -1,20 +1,36 @@
 """The port's hand-written CUDA kernels: build, bind, check, launch, count.
 
-Each kernel is a source under csrc/ with a plain C interface. On first use
-it is compiled with nvcc for sm_90a into build/ (next to csrc/, listed in
-.gitignore) and loaded with ctypes. Every pointer and the stream go to C as
-c_void_p. A wrapper checks device, dtype, shape and contiguity, allocates
-its output with torch.empty, launches on the current stream without
-synchronising, raises if the C function reports a launch error, and adds
-one to its kernel's `launches` count. Nothing is built or loaded when this
-module is imported, so it imports on a machine without CUDA.
+Each kernel is a source under csrc/ with a plain C entry point (one or
+more). csrc/ops.cpp registers them as PyTorch operators (namespace
+mmseg_cuda, TORCH_LIBRARY, CUDA dispatch key): in one call from Python it
+checks the tensors, allocates the outputs and launches. On first use the
+kernels are compiled with nvcc for sm_90a and ops.cpp with g++ against
+torch's headers, all at once, and linked into one library in build/ (next
+to csrc/, listed in .gitignore), loaded with torch.ops.load_library. No
+ninja and no pybind11 are needed. The library's name holds torch's
+version, so another torch builds its own; each build writes its objects
+and the library under names of its own process, and the library takes
+its place with one rename, so processes that build at once in one
+checkout do not read each other's half-written files.
+
+The launch path is kept light, since at the training shapes a call's host
+time is as long as its device time:
+  * the operators are read without a lock once they are loaded;
+  * the device is switched only when the tensor's device is not current;
+  * the stream is the raw handle of the current stream
+    (torch._C._cuda_getCurrentRawStream), passed to the operator as an int;
+  * the checks and the allocations are C++, inside the one call.
+A bad input raises ValueError (before anything is built if it is not a
+CUDA tensor), a launch error RuntimeError. A wrapper launches on the
+current stream without synchronising and adds one to its kernel's
+`launches` count. Nothing is built or loaded when this module is
+imported, so it imports on a machine without CUDA.
 
 The wrappers take CUDA tensors only; the callers in ops/ (tps.py,
 augment.py, rounding.py) run the plain PyTorch versions for tensors on the
 CPU.
 """
 
-import ctypes
 import os
 import shutil
 import subprocess
@@ -26,14 +42,14 @@ import torch
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
+LIBRARY = os.path.join(BUILD_DIR, "libmmseg_cuda.torch%s.so" % torch.__version__)
+BINDING = os.path.join(CSRC_DIR, "ops.cpp")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_longlong
+# the most arrays one rotate_group launch takes (csrc/nearest_warp.cu)
+MAX_GROUP = 4
 
 
 def _nvcc():
@@ -44,76 +60,95 @@ def _nvcc():
 
 
 class Kernel:
-    """One CUDA source with one C entry point, built on first use."""
+    """One CUDA source and the operators that launch it; `launches`
+    counts the launches of all of them."""
 
-    def __init__(self, name, source, argtypes):
+    def __init__(self, name, source, entries):
         self.name = name
         self.source = os.path.join(CSRC_DIR, source)
-        self.library = os.path.join(
-            BUILD_DIR, "lib%s.so" % os.path.splitext(source)[0]
-        )
-        self.argtypes = argtypes
+        self.entries = entries
         self.launches = 0
-        self.build_info = None   # {"seconds", "ptxas"} after a build
-        self._fn = None
-        self._lock = threading.Lock()
+        self.fns = None          # {entry: torch.ops overload} once loaded
 
-    def _stale(self):
-        return (not os.path.exists(self.library)
-                or os.path.getmtime(self.library) < os.path.getmtime(self.source))
-
-    def _start_build(self):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = "%s.%d.tmp" % (self.library, os.getpid())
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, self.source]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        return proc, tmp, time.perf_counter()
-
-    def _finish_build(self, proc, tmp, t0):
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed for %s:\n%s" % (self.source, log))
-        os.replace(tmp, self.library)
-        self.build_info = {
-            "seconds": time.perf_counter() - t0,
-            "ptxas": [l.strip() for l in log.splitlines()
-                      if "registers" in l or "spill" in l],
-        }
-
-    def fn(self):
-        """The bound C function, building the library first if needed."""
-        with self._lock:
-            if self._fn is None:
-                if self._stale():
-                    self._finish_build(*self._start_build())
-                f = getattr(ctypes.CDLL(self.library), self.name)
-                f.argtypes = self.argtypes
-                f.restype = ctypes.c_int
-                self._fn = f
-            return self._fn
+    def fn(self, entry=None):
+        """The operator `entry` (default: the kernel's name), building and
+        loading the library on first use."""
+        fns = self.fns
+        if fns is None:
+            fns = _load()[self.name]
+        return fns[entry or self.name]
 
 
-TPS_WARP_FWD = Kernel(
-    "tps_warp_fwd", "tps_warp.cu", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-)
-TPS_WARP_BWD = Kernel(
-    "tps_warp_bwd", "tps_warp_bwd.cu", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-)
-NEAREST_WARP = Kernel(
-    "nearest_warp", "nearest_warp.cu", [_P, _P, _P, _I, _I, _I, _I, _I, _P]
-)
-ROUND_STE = Kernel("round_ste", "round_ste.cu", [_P, _P, _L, _I, _P])
+TPS_WARP_FWD = Kernel("tps_warp_fwd", "tps_warp.cu", ("tps_warp_fwd",))
+TPS_WARP_BWD = Kernel("tps_warp_bwd", "tps_warp_bwd.cu", ("tps_warp_bwd",))
+NEAREST_WARP = Kernel("nearest_warp", "nearest_warp.cu", ("nearest_warp", "rotate_group"))
+ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
 KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE)
+_lock = threading.Lock()
+
+
+def _start(cmd):
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def _finish(job, what):
+    proc, t0 = job
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError("build failed for %s:\n%s" % (what, log))
+    return {"seconds": time.perf_counter() - t0,
+            "ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]}
 
 
 def build_all():
-    """Build every kernel library from its source, one nvcc per source, all
-    started together. Returns {kernel name: build_info}."""
-    started = [(k, k._start_build()) for k in KERNELS]
-    for k, job in started:
-        k._finish_build(*job)
-    return {k.name: k.build_info for k in KERNELS}
+    """Build the library from csrc/: one nvcc per kernel source and one g++
+    for ops.cpp, all started together, then one link. Returns {kernel
+    name: {"seconds", "ptxas"}, "ops.cpp": ..., "link": ...}."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
+    torch_lib = os.path.join(torch_dir, "lib")
+    pid = os.getpid()
+    objects = {k.name: os.path.join(BUILD_DIR, "%s.%d.o" % (k.name, pid)) for k in KERNELS}
+    binding = os.path.join(BUILD_DIR, "ops.%d.o" % pid)
+    tmp = "%s.%d.tmp" % (LIBRARY, pid)
+    try:
+        jobs = [(k, _start([_nvcc(), *NVCC_FLAGS, "-c", "-o", objects[k.name], k.source]))
+                for k in KERNELS]
+        gxx = _start([shutil.which("g++") or "c++", "-std=c++17", "-O2", "-fPIC", "-w",
+                      "-D_GLIBCXX_USE_CXX11_ABI=%d" % int(torch._C._GLIBCXX_USE_CXX11_ABI),
+                      "-I", os.path.join(torch_dir, "include"), "-c", "-o", binding, BINDING])
+        info = {k.name: _finish(job, k.source) for k, job in jobs}
+        info["ops.cpp"] = _finish(gxx, BINDING)
+        info["link"] = _finish(_start([_nvcc(), "-shared", "-o", tmp, *objects.values(),
+                                       binding, "-L", torch_lib, "-lc10", "-ltorch_cpu",
+                                       "-Xlinker", "-rpath", "-Xlinker", torch_lib]), LIBRARY)
+        os.replace(tmp, LIBRARY)
+    finally:
+        for path in [*objects.values(), binding, tmp]:
+            if os.path.exists(path):
+                os.remove(path)
+    return info
+
+
+def _stale():
+    if not os.path.exists(LIBRARY):
+        return True
+    built = os.path.getmtime(LIBRARY)
+    return any(os.path.getmtime(src) > built for src in [BINDING] + [k.source for k in KERNELS])
+
+
+def _load():
+    """Build the library if it is missing or older than a source, load it
+    once, and bind every kernel's operators. Returns {kernel name: fns}."""
+    with _lock:
+        if any(k.fns is None for k in KERNELS):
+            if _stale():
+                build_all()
+            torch.ops.load_library(LIBRARY)
+            for k in KERNELS:
+                k.fns = {e: getattr(torch.ops.mmseg_cuda, e).default for e in k.entries}
+        return {k.name: k.fns for k in KERNELS}
 
 
 def launch_counts():
@@ -125,38 +160,30 @@ def reset_launch_counts():
         k.launches = 0
 
 
-def _check(cond, msg, name="tps_warp_fwd"):
-    if not cond:
-        raise ValueError("%s: %s" % (name, msg))
+def _launch(kernel, entry, t, *args, count=1):
+    """The operator `entry` of `kernel` on (*args, stream): the current
+    stream of t's device, made current for the call if it is not; counts
+    the launch unless it raised."""
+    fn = kernel.fn(entry)
+    idx = t.get_device()
+    if idx == torch._C._cuda_getDevice():
+        out = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            out = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    kernel.launches += count
+    return out
 
 
-def _check_vol(vol, name):
-    _check(vol.device.type == "cuda", "vol must be a CUDA tensor, got %s" % vol.device, name)
-    _check(vol.dtype in (torch.float32, torch.bfloat16),
-           "vol must be float32 or bfloat16, got %s" % vol.dtype, name)
-    _check(vol.dim() == 4, "vol must be (B, H, W, C), got %s" % (tuple(vol.shape),), name)
-    B, H, W, C = vol.shape
-    _check(1 <= B <= 65535 and H >= 1 and W >= 1 and C >= 1,
-           "unsupported vol shape %s" % (tuple(vol.shape),), name)
-    _check(vol.is_contiguous(), "vol must be contiguous", name)
+def _fail(name, msg):
+    raise ValueError("%s: %s" % (name, msg))
 
 
-def _check_locs(locs, vol, name):
-    B, H, W, _ = vol.shape
-    _check(locs.device == vol.device, "locs must be on %s" % vol.device, name)
-    _check(locs.dtype == torch.float32, "locs must be float32, got %s" % locs.dtype, name)
-    _check(tuple(locs.shape) == (B, H * W, 2),
-           "locs must be %s, got %s" % ((B, H * W, 2), tuple(locs.shape)), name)
-    _check(locs.is_contiguous(), "locs must be contiguous", name)
-
-
-def _launch(kernel, device, *args):
-    fn = kernel.fn()
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError("%s launch failed with CUDA error %d" % (kernel.name, err))
-    kernel.launches += 1
+def _cuda(t, name, what):
+    """The only check made in Python: the rest are the operators' own (in
+    C++), but a CPU tensor must raise before anything is built."""
+    if not t.is_cuda:
+        _fail(name, "%s must be a CUDA tensor, got %s" % (what, t.device))
 
 
 def tps_warp_fwd(vol, wv, cp):
@@ -177,20 +204,8 @@ def tps_warp_fwd(vol, wv, cp):
     Returns:
       (B, H, W, C) warped images in vol's dtype.
     """
-    _check_vol(vol, "tps_warp_fwd")
-    B, H, W, C = vol.shape
-    _check(H >= 2 and W >= 2, "unsupported vol shape %s" % (tuple(vol.shape),))
-    for name, t, shape in (("wv", wv, (B, 28, 2)), ("cp", cp, (25, 2))):
-        _check(t.device == vol.device, "%s must be on %s" % (name, vol.device))
-        _check(t.dtype == torch.float32, "%s must be float32, got %s" % (name, t.dtype))
-        _check(tuple(t.shape) == shape,
-               "%s must be %s, got %s" % (name, shape, tuple(t.shape)))
-    _check(wv.is_contiguous() and cp.is_contiguous(), "inputs must be contiguous")
-
-    out = torch.empty_like(vol)
-    _launch(TPS_WARP_FWD, vol.device, vol.data_ptr(), wv.data_ptr(), cp.data_ptr(),
-            out.data_ptr(), B, H, W, C, cp.shape[0], int(vol.dtype == torch.bfloat16))
-    return out
+    _cuda(vol, "tps_warp_fwd", "vol")
+    return _launch(TPS_WARP_FWD, "tps_warp_fwd", vol, vol, wv, cp)
 
 
 def tps_warp_bwd(vol, locs, g):
@@ -199,39 +214,33 @@ def tps_warp_bwd(vol, locs, g):
     Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
     tps_bilinear_warp_bwd_pallas. Memory-bound: it reads vol, g and locs
     and writes grad_vol and grad_locs once (49.6 MB at B=12, 192x192, C=8
-    in f32). One thread per sample point; the corner scatter into grad_vol
-    uses f32 atomics, so grad_vol is not bit-reproducible across runs.
+    in f32). A block sums its tile's scatter into grad_vol in a
+    shared-memory window and adds the window to grad_vol with vector
+    atomics; grad_vol is not bit-reproducible across runs, grad_locs is.
 
     Args:
       vol: (B, H, W, C) contiguous CUDA tensor, float32 or bfloat16: the
         forward's source.
       locs: (B, H*W, 2) contiguous float32 pixel-space (y, x) locations
         (ops/tps.py::tps_sample_locations).
-      g: (B, H, W, C) contiguous cotangent of the forward output, vol's dtype.
+      g: (B, H, W, C) cotangent of the forward output in vol's dtype, any
+        strides (the kernel reads it through them; the fuser's permute
+        hands it over channels-first).
 
     Returns:
       (grad_vol, grad_locs): (B, H, W, C) in vol's dtype (accumulated in
       f32) and (B, H*W, 2) float32.
     """
-    name = "tps_warp_bwd"
-    _check_vol(vol, name)
-    _check_locs(locs, vol, name)
-    _check(g.device == vol.device and g.dtype == vol.dtype and g.shape == vol.shape,
-           "g must match vol's device, dtype and shape, got %s %s %s"
-           % (g.device, g.dtype, tuple(g.shape)), name)
-    _check(g.is_contiguous(), "g must be contiguous", name)
-    B, H, W, C = vol.shape
-    grad_vol = torch.zeros(vol.shape, dtype=torch.float32, device=vol.device)
-    grad_locs = torch.empty_like(locs)
-    _launch(TPS_WARP_BWD, vol.device, vol.data_ptr(), locs.data_ptr(), g.data_ptr(),
-            grad_vol.data_ptr(), grad_locs.data_ptr(), B, H, W, C,
-            int(vol.dtype == torch.bfloat16))
-    return grad_vol.to(vol.dtype), grad_locs
+    _cuda(vol, "tps_warp_bwd", "vol")
+    grad_vol, grad_locs = _launch(TPS_WARP_BWD, "tps_warp_bwd", vol, vol, locs, g)
+    if vol.dtype != torch.float32:
+        grad_vol = grad_vol.to(vol.dtype)
+    return grad_vol, grad_locs
 
 
 def nearest_warp(vol, locs):
     """Nearest-neighbour warp at explicit locations on the GPU
-    (csrc/nearest_warp.cu).
+    (csrc/nearest_warp.cu, entry nearest_warp).
 
     Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
     nearest_warp_pallas. y = clip(round_half_even(ly), 0, H-1), x likewise,
@@ -246,14 +255,34 @@ def nearest_warp(vol, locs):
     Returns:
       (B, H, W, C) in vol's dtype.
     """
-    name = "nearest_warp"
-    _check_vol(vol, name)
-    _check_locs(locs, vol, name)
-    B, H, W, C = vol.shape
-    out = torch.empty_like(vol)
-    _launch(NEAREST_WARP, vol.device, vol.data_ptr(), locs.data_ptr(), out.data_ptr(),
-            B, H, W, C, vol.element_size())
-    return out
+    _cuda(vol, "nearest_warp", "vol")
+    return _launch(NEAREST_WARP, "nearest_warp", vol, vol, locs)
+
+
+def rotate_group(arrays, cos_t, sin_t):
+    """Rotate up to MAX_GROUP arrays by the same per-sample angles in one
+    launch (csrc/nearest_warp.cu, entry rotate_group).
+
+    The same function as ops/augment.py::random_rotate_batch on the
+    concatenated group: each output point's source pixel is computed in
+    the kernel from cos/sin, in the f32 operation order of
+    ops/augment.py::rotation_locations, rounded half to even and clamped
+    to the edge; the channels are copied bit for bit. Each array is read
+    and each output written directly: no concatenation, no split. The
+    outputs share one allocation.
+
+    Args:
+      arrays: 1 to MAX_GROUP contiguous (B, H, W, C_i) CUDA tensors of one
+        dtype (float32 or bfloat16) and one (B, H, W).
+      cos_t, sin_t: (B,) contiguous float32 cos and sin of the angles.
+
+    Returns:
+      A list of (B, H, W, C_i) tensors in the arrays' dtype.
+    """
+    if not arrays:
+        _fail("rotate_group", "takes 1 to %d arrays, got none" % MAX_GROUP)
+    _cuda(arrays[0], "rotate_group", "arrays[0]")
+    return _launch(NEAREST_WARP, "rotate_group", arrays[0], arrays, cos_t, sin_t)
 
 
 def round_ste(x):
@@ -271,13 +300,5 @@ def round_ste(x):
     Returns:
       A new tensor of x's shape and dtype.
     """
-    name = "round_ste"
-    _check(x.device.type == "cuda", "x must be a CUDA tensor, got %s" % x.device, name)
-    _check(x.dtype in (torch.float32, torch.bfloat16),
-           "x must be float32 or bfloat16, got %s" % x.dtype, name)
-    _check(x.is_contiguous(), "x must be contiguous", name)
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    _launch(ROUND_STE, x.device, x.data_ptr(), out.data_ptr(), x.numel(), x.element_size())
-    return out
+    _cuda(x, "round_ste", "x")
+    return _launch(ROUND_STE, "round_ste", x, x, count=int(x.numel() > 0))

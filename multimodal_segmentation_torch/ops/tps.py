@@ -171,8 +171,9 @@ class _TPSWarpCUDA(torch.autograd.Function):
         with torch.enable_grad():
             off = cp_offsets.detach().requires_grad_(True)
             locs = tps_sample_locations(off, (H, W), ctx.cp_dims)
-        # g arrives through the fuser's permute: not contiguous
-        grad_vol, grad_locs = tps_warp_bwd(vol, locs.detach(), g.contiguous())
+        # g arrives through the fuser's permute, channels-first: the kernel
+        # reads it through its strides, with no contiguous copy
+        grad_vol, grad_locs = tps_warp_bwd(vol, locs.detach(), g)
         grad_off = None
         if ctx.needs_input_grad[1]:
             (grad_off,) = torch.autograd.grad(locs, off, grad_locs)

@@ -139,6 +139,64 @@ def test_warp_bwd_kernel_training_shape(cuda):
     assert (gv - rv).abs().max().item() <= 1e-5 * rv.abs().max().item()
 
 
+def _bwd_check(vol, locs, g):
+    """The kernel against its plain version, f32 tolerances (as above)."""
+    gv, gl = cuda_kernels.tps_warp_bwd(vol, locs, g)
+    rv, rl = tps._tps_warp_bwd_plain(vol, locs, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(gl, rl, atol=5e-5, rtol=1e-4)
+    assert (gv - rv).abs().max().item() <= 1e-5 * rv.abs().max().item()
+
+
+def test_warp_bwd_kernel_scattered_locations(cuda):
+    """Locations uniform over [-2, H+1) x [-2, W+1): no tile's corners fit
+    a shared-memory window, so every corner goes to a global atomic; some
+    points fall outside the image."""
+    vol, locs, g = _bwd_inputs(cuda, B=4, H=96, W=80)
+    r = np.random.RandomState(7)
+    lo, hi = np.array([-2.0, -2.0]), np.array([96 + 1.0, 80 + 1.0])
+    locs = torch.from_numpy((lo + r.rand(4, 96 * 80, 2) * (hi - lo)).astype(np.float32)).to(cuda)
+    _bwd_check(vol, locs, g)
+
+
+@pytest.mark.parametrize("stretch", [2.5, 2.7, 6.0])
+def test_warp_bwd_kernel_window_edges(cuda, stretch):
+    """x = stretch * j + 0.6: a 32-point tile row spans ~32 * stretch
+    columns, so its C = 8 window fits (2.5), just does not (2.7: part of the
+    tile goes to global atomics) or holds a small part (6.0); columns past
+    W fall outside. Rows sit on the last row and just past it too."""
+    B, H, W, C = 2, 40, 200, 8
+    vol, _, g = _bwd_inputs(cuda, B=B, H=H, W=W, C=C)
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    y = np.where(i % 9 == 0, H - 1.0, np.where(i % 9 == 1, -1.0, i + 0.3))
+    locs = np.stack([y, stretch * j + 0.6], -1).reshape(1, H * W, 2)
+    _bwd_check(vol, torch.from_numpy(np.repeat(locs, B, 0).astype(np.float32)).to(cuda), g)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+def test_warp_bwd_kernel_channel_counts(cuda, C):
+    """The window's flush in float4 (C % 4 == 0), float2 and scalar
+    atomics, with small and large TPS offsets."""
+    for scale in (0.05, 0.6):
+        _bwd_check(*_bwd_inputs(cuda, B=2, H=64, W=48, C=C, scale=scale))
+
+
+def test_warp_bwd_kernel_reads_g_through_its_strides(cuda):
+    """g as the fuser hands it over (an NCHW tensor through permute) and a
+    g with a gap between pixels give what the contiguous g gives."""
+    vol, locs, g = _bwd_inputs(cuda, B=3, H=64, W=48, C=8)
+    ref_v, ref_l = cuda_kernels.tps_warp_bwd(vol, locs, g)
+    wide = torch.zeros(3, 64, 48, 11, device=cuda)
+    wide[..., 2:10] = g
+    for gg in (g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), wide[..., 2:10]):
+        assert not gg.is_contiguous()
+        gv, gl = cuda_kernels.tps_warp_bwd(vol, locs, gg)
+        torch.cuda.synchronize()
+        assert torch.equal(gl, ref_l)
+        assert (gv - ref_v).abs().max().item() <= 1e-6 * ref_v.abs().max().item()
+    _bwd_check(vol, locs, g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))
+
+
 def test_warp_bwd_kernel_outside_and_nan_points_contribute_nothing(cuda):
     vol, locs, g = _bwd_inputs(cuda, B=1, H=8, W=8, C=2)
     locs = locs.clone()
@@ -243,6 +301,69 @@ def test_nearest_warp_kernel_bf16_and_clamping(cuda):
     assert torch.equal(got[0, 0, 0], vol[0, 2, 4])
 
 
+def _tie_angles(device, n):
+    """n f32 angles whose sin or cos on `device` is exactly +-0.5: on an
+    odd-sized image they put locations on exact .5 ties."""
+    found = []
+    for deg in (30.0, -30.0, 60.0, -60.0):
+        t = np.float32(np.radians(deg))
+        cand = (np.array([t]).view(np.int32) + np.arange(-256, 257, dtype=np.int32)).view(np.float32)
+        tt = torch.from_numpy(cand).to(device)
+        hit = ((torch.sin(tt).abs() == 0.5) | (torch.cos(tt).abs() == 0.5)).cpu().numpy()
+        found += [float(a) for a in cand[hit][:1]]
+    assert len(found) >= 2
+    return torch.tensor((found * n)[:n], dtype=torch.float32, device=device)
+
+
+GROUPS = ([1, 1, 4, 4], [1, 1, 4], [4, 4], [1, 1], [3], [2, 5, 1, 7])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("widths", GROUPS)
+def test_rotate_group_kernel_bit_exact(cuda, dtype, widths):
+    """The fused group rotation, images and {0,1} masks, against the group
+    concatenated, sampled at rotation_locations and split (the CPU path and
+    the JAX package's way), and against its own plain version: at 0, +-20
+    degrees and between on 192x192, and at tie angles on 33x33."""
+    r = np.random.RandomState(sum(widths))
+    th20 = torch.from_numpy(np.radians(np.array([0.0, 20.0, -20.0, 7.3, -13.9, 19.99],
+                                                np.float32))).to(cuda)
+    for B, H, W, th in ((6, 192, 192, th20), (4, 33, 33, _tie_angles(cuda, 4))):
+        cos_t, sin_t = torch.cos(th), torch.sin(th)
+        locs = augment.rotation_locations(th, H, W)
+        if H == 33:
+            assert ((locs - locs.floor()) == 0.5).any()
+        for masks in (False, True):
+            arrays = [torch.from_numpy(((r.rand(B, H, W, c) > 0.7) if masks else
+                                        (r.rand(B, H, W, c) * 2 - 1)).astype(np.float32))
+                      .to(cuda, dtype) for c in widths]
+            cat = augment._nearest_warp_plain(torch.cat(arrays, -1), locs)
+            ref = torch.split(cat, widths, -1)
+            for got in (cuda_kernels.rotate_group(arrays, cos_t, sin_t),
+                        augment._rotate_group_plain(arrays, cos_t, sin_t)):
+                assert all(torch.equal(a, b) for a, b in zip(got, ref))
+            if H == 192:   # sample 0 at 0 degrees: the identity
+                assert torch.equal(cuda_kernels.rotate_group(arrays, cos_t, sin_t)[0][0],
+                                   arrays[0][0])
+
+
+def test_random_rotate_batch_group_sizes_on_the_card(cuda):
+    """random_rotate_batch launches one rotate_group per 4 arrays and
+    returns the arrays in order, bit-exact against the concatenated
+    reference."""
+    r = np.random.RandomState(3)
+    th = torch.from_numpy(np.radians(np.array([11.0, -17.5, 3.2], np.float32))).to(cuda)
+    arrays = [torch.from_numpy(r.rand(3, 40, 36, c).astype(np.float32)).to(cuda)
+              for c in (1, 4, 2, 1, 4, 3)]
+    before = cuda_kernels.NEAREST_WARP.launches
+    got = augment.random_rotate_batch(arrays, th)
+    assert cuda_kernels.NEAREST_WARP.launches == before + 2
+    ref = torch.split(augment._nearest_warp_plain(torch.cat(arrays, -1),
+                                                  augment.rotation_locations(th, 40, 36)),
+                      [1, 4, 2, 1, 4, 3], -1)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def test_rotate_batch_launches_kernel(cuda):
     x = torch.rand(3, 32, 32, 4, device=cuda)
     before = cuda_kernels.NEAREST_WARP.launches
@@ -258,7 +379,9 @@ def test_new_wrappers_reject_bad_inputs(cuda):
         (vol, locs[:, :-1], g),                        # locs shape
         (vol, locs.double(), g),                       # locs dtype
         (vol, locs, g[..., :4]),                       # g shape
-        (vol, locs, g.transpose(1, 2)),                # g not contiguous
+        (vol, locs, g.transpose(1, 2)),                # g shape (H != W)
+        (vol, locs, g.double()),                       # g dtype
+        (vol, locs, g.cpu()),                          # g device
         (vol.cpu(), locs, g),                          # device
     ]
     for args in bad_bwd:
@@ -267,6 +390,21 @@ def test_new_wrappers_reject_bad_inputs(cuda):
     for args in ((vol.half(), locs), (vol, locs[:, :-1]), (vol.cpu(), locs)):
         with pytest.raises(ValueError):
             cuda_kernels.nearest_warp(*args)
+    cos_t = torch.ones(3, device=cuda)
+    x = vol[..., :4].contiguous()
+    bad_group = [
+        ([], cos_t, cos_t),                            # no array
+        ([x] * 5, cos_t, cos_t),                       # more than MAX_GROUP
+        ([x, x.half()], cos_t, cos_t),                 # dtypes differ
+        ([x, x[:2]], cos_t, cos_t),                    # batch differs
+        ([x, vol[..., :4]], cos_t, cos_t),             # not contiguous
+        ([x, x.cpu()], cos_t, cos_t),                  # device differs
+        ([x], cos_t[:2], cos_t),                       # cos shape
+        ([x], cos_t, cos_t.double()),                  # sin dtype
+    ]
+    for args in bad_group:
+        with pytest.raises(ValueError):
+            cuda_kernels.rotate_group(*args)
 
 
 # ------------------------------------------------------ round half even (B4)
