@@ -19,7 +19,13 @@ Phases, one JSON line each:
                 channels-first; `rotation`: a training step's three
                 group rotations, kernel and whole random_rotate_batch
                 path, with wall times; round_ste; `launch_path`: host us
-                of each part of a wrapper's launch)
+                of each part of a wrapper's launch; `flow`: tps_flow_dbg
+                at the tool's shape and at B1's, the stages check of B1
+                against a plain blend at its locations, the gap to
+                tps_sample_locations, B5's share of B1's device time)
+  debug-warp    the warp-bisect tool (multimodal_segmentation_torch.tools.
+                debug_warp_kernel) on the card: its five max differences
+                and the kernel launches of that run
   slice         ModelTester on the synthetic loader's split-0 test volumes,
                 modality t2, fusions simple/def/max on expert and randomised
                 pairs, at full dafnet_chaos width with seeded weights: Dice
@@ -51,10 +57,10 @@ line. Any failed check raises, and the script exits non-zero without a
 result line; so it does without a CUDA device, or outside the repository.
 
   python3 chip_smoke.py                  # needs one CUDA device
-  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train and
-                                         # experiment at the tiny config on the
-                                         # CPU with the plain versions; no
-                                         # result line
+  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train,
+                                         # debug-warp and experiment at the
+                                         # tiny config on the CPU with the
+                                         # plain versions; no result line
   python3 chip_smoke.py --profile-train  # only a torch.profiler window over
                                          # full-width train steps on the card:
                                          # device time by kernel and by kind,
@@ -203,28 +209,32 @@ def rotating(tensors_fn, nbytes, floor=160 * 2 ** 20):
 def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10):
     """Time kernel(buf), plain(buf) and library(buf), each call on the next
     of the rotating buffers `bufs`, and the bound of the work: the larger of
-    `moved` bytes over the HBM rate and `flops` over the f32 rate."""
+    `moved` bytes over the HBM rate and `flops` over the f32 rate. Where no
+    PyTorch call computes the function, `library` is None and so are its
+    times."""
     def cycled(fn):
         it = itertools.cycle(bufs)
         return lambda: fn(next(it))
 
     ms, ms_spread = time_ms(cycled(kernel))
     plain_ms, plain_spread = time_ms(cycled(plain), iters=plain_iters)
-    library_ms, library_spread = time_ms(cycled(library))
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
     out = {
         "ms": ms, "ms_spread": ms_spread,
         "device_ms": device_ms(cycled(kernel)),
         "host_ms": host_ms(cycled(kernel)),
         "plain_ms": plain_ms, "plain_ms_spread": plain_spread,
-        "library_ms": library_ms, "library_ms_spread": library_spread,
-        "library_device_ms": device_ms(cycled(library)),
-        "library_host_ms": host_ms(cycled(library)),
+        "library_ms": None, "library_ms_spread": None,
+        "library_device_ms": None, "library_host_ms": None, "host_over_library_host": None,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": moved, "flops": flops,
     }
-    out["host_over_library_host"] = out["host_ms"] / out["library_host_ms"]
+    if library is not None:
+        out["library_ms"], out["library_ms_spread"] = time_ms(cycled(library))
+        out["library_device_ms"] = device_ms(cycled(library))
+        out["library_host_ms"] = host_ms(cycled(library))
+        out["host_over_library_host"] = out["host_ms"] / out["library_host_ms"]
     return out
 
 
@@ -673,6 +683,96 @@ def launch_path_phase(torch, dev):
     return {"shape": list(x.shape), "host_us": parts}
 
 
+def flow_phase(torch, dev):
+    """tps_flow_dbg (B5) against its plain version at the tool's shape (B =
+    2) and at B1's (B = 12, training; B = 24, inference), 192x192, offsets
+    of +-0.025: flow within 2e-4 px, qy, qx and phi_0 within 1e-6. At B =
+    12 and 24 the stages check: B1 on f32 images in [0, 1] against the
+    plain bilinear blend at B5's locations, within 1e-5 (a flow that
+    differed at all would flip floor() at pixel edges). At each B the gap
+    between B5's locations and tps_sample_locations, which the warp's
+    backward recomputes (reported, not held). Timed at B = 12 and 24 (at B
+    = 2 a time measures the launch); the outputs of the last calls are kept,
+    so that each call writes memory the previous ones did not. No PyTorch
+    call computes this function: no library time."""
+    import collections
+
+    import numpy as np
+
+    from multimodal_segmentation_torch.ops import tps
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_flow_dbg, tps_warp_fwd
+    from multimodal_segmentation_torch.ops.resample import bilinear_sample
+
+    H, W, C = 192, 192, 8
+    r = np.random.RandomState(5)
+    cp = tps.control_grid((5, 5), dev)
+    res = {}
+    for B in (2, 12, 24):
+        off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
+        wv = tps.tps_coefficients(off)
+        got = tps_flow_dbg(wv, cp, (H, W))
+        ref = tps._tps_flow_stage_plain(wv, cp, (H, W))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "non-finite flow at B=%d" % B)
+        err = (got - ref).abs().amax((0, 1)).tolist()
+        check(max(err[:2]) <= 2e-4 and max(err[2:]) <= 1e-6,
+              "tps_flow_dbg B=%d errors %s (flow px, qy, qx, phi_0)" % (B, err))
+        locs = got[..., :2].contiguous()
+        out = {
+            "shape": [B, H, W],
+            "errors": dict(zip(("flow_y_px", "flow_x_px", "qy", "qx", "phi0"), err)),
+            "max_abs_err": max(err),
+            "location_gap_px": (locs - tps.tps_sample_locations(off, (H, W))).abs().max().item(),
+        }
+        if B > 2:
+            vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
+            stages = (tps_warp_fwd(vol, wv, cp)
+                      - bilinear_sample(vol, locs).reshape(B, H, W, C)).abs().max().item()
+            check(stages <= 1e-5, "B1 against a blend at B5's locations, B=%d: %.3g > 1e-5"
+                  % (B, stages))
+            # bound: the output written once, the coefficients and control
+            # points read once; per point 25 RBF terms of ~13 operations (a
+            # logf counted as one) and ~10 for the affine term and scaling
+            nbytes = got.numel() * 4
+            bufs = rotating(lambda: wv.clone(), nbytes)
+            keep = collections.deque(maxlen=len(bufs))
+            out["stages_max_abs_diff"] = stages
+            out.update(measure(bufs, lambda w: keep.append(tps_flow_dbg(w, cp, (H, W))),
+                               lambda w: tps._tps_flow_stage_plain(w, cp, (H, W)), None,
+                               nbytes + wv.numel() * 4 + cp.numel() * 4,
+                               B * H * W * (25 * 13 + 10)))
+            keep.clear()
+        res["B=%d" % B] = out
+    return res
+
+
+def debug_warp_phase(torch, device):
+    """The warp-bisect tool's main on `device` (its prints captured): its
+    five max differences, held at 1e-3 px for the flow against
+    tps_sample_locations and 1e-6 for qy, qx and phi_0, and the kernel
+    launches of the run: on the card one tps_flow_dbg and nothing else."""
+    import contextlib
+    import io
+
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.tools import debug_warp_kernel
+
+    printed = io.StringIO()
+    cuda_kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(printed):
+        diffs = debug_warp_kernel.main(["--device", device])
+    launches = cuda_kernels.launch_counts()
+    check(all(math.isfinite(v) for v in diffs.values()), "non-finite bisect: %s" % diffs)
+    check(max(diffs["flow_y"], diffs["flow_x"]) <= 1e-3
+          and max(diffs["qy"], diffs["qx"], diffs["phi0"]) <= 1e-6, "bisect diffs %s" % diffs)
+    if device == "cuda":
+        want = dict.fromkeys(launches, 0)
+        want["tps_flow_dbg"] = 1
+        check(launches == want, "debug-warp launches %s != %s" % (launches, want))
+    return {"device": device, "diffs": diffs, "printed": printed.getvalue().splitlines(),
+            "launches": launches}
+
+
 def _seed_weights(torch, model, seed):
     """The seeded changes named at ANATOMY_GAIN / DENSE1_STD."""
     g = torch.Generator().manual_seed(seed)
@@ -845,7 +945,7 @@ def train_phase(torch, conf, device, warmup, steps):
     launches = cuda_kernels.launch_counts()
     if on_card:
         want = {"tps_warp_fwd": 2 * steps, "tps_warp_bwd": steps, "nearest_warp": 3 * steps,
-                "round_ste": 2 * steps}
+                "round_ste": 2 * steps, "tps_flow_dbg": 0}
         check(launches == want, "train launches %s != %s" % (launches, want))
     moved = {n: max((p.detach() - b).abs().max().item()
                     for p, b in zip(getattr(model, n).parameters(), before[n])) for n in names}
@@ -1026,7 +1126,7 @@ def experiment_phase(torch, device, preset):
             # 'def'/'max' one warp; the image callback encodes once more
             want = {"tps_warp_fwd": 2 * steps + calls["warped"], "tps_warp_bwd": steps,
                     "nearest_warp": 3 * steps,
-                    "round_ste": 2 * steps + calls["predict"] + image_epochs}
+                    "round_ste": 2 * steps + calls["predict"] + image_epochs, "tps_flow_dbg": 0}
             check(launches == want, "experiment launches %s != %s" % (launches, want))
         dice = {}
         for mod in conf.modality:
@@ -1088,7 +1188,8 @@ def experiment_phase(torch, device, preset):
 
 def _kernel_kind(name):
     n = name.lower()
-    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste")):
+    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste",
+                            "tps_flow_dbg")):
         return "port kernels"
     # cuDNN's FFT-tiling convolutions: complex (cf32) GEMMs, FFTs, tile transforms
     if any(k in n for k in ("cf32", "fft", "dse::", "region_transform")):
@@ -1142,8 +1243,8 @@ def train_profile_phase(torch, conf, device, warmup=2, steps=3):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="slice, cross-device and train at the tiny config on "
-                         "the CPU; no result line")
+                    help="slice, cross-device, train, debug-warp and experiment "
+                         "at the tiny config on the CPU; no result line")
     ap.add_argument("--profile-train", action="store_true",
                     help="only profile full-width train steps on the card; "
                          "no result line")
@@ -1164,6 +1265,7 @@ def main(argv=None):
         emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cpu"))
         emit("train", **train_phase(torch, config.tiny_test_config(), "cpu", 1, 2))
         emit("train-cross-device", **train_cross_device_phase(torch, "cpu"))
+        emit("debug-warp", **debug_warp_phase(torch, "cpu"))
         config.PRESETS.setdefault("tiny", config.tiny_test_config)
         emit("experiment", **experiment_phase(torch, "cpu", "tiny"))
         return 0
@@ -1200,8 +1302,17 @@ def main(argv=None):
         "rotation": rotation_phase(torch, dev),
         "round_ste": round_ste_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
+        "flow": flow_phase(torch, dev),
+    }
+    fwd = kern["tps_warp_fwd"]
+    kern["flow"]["share_of_b1_device_ms"] = {
+        "train B=12 f32": kern["flow"]["B=12"]["device_ms"] / fwd["train_float32"]["device_ms"],
+        "infer B=24 bf16": kern["flow"]["B=24"]["device_ms"] / fwd["bfloat16"]["device_ms"],
+        "infer B=24 f32": kern["flow"]["B=24"]["device_ms"] / fwd["float32"]["device_ms"],
     }
     emit("kernels", card=smi, **kern)
+    bisect = debug_warp_phase(torch, "cuda")
+    emit("debug-warp", **bisect)
 
     conf = config.dafnet_chaos()
     conf.test_dataset, conf.folder = "synthetic", os.path.join(OUT_DIR, "dafnet_chaos")
@@ -1218,29 +1329,33 @@ def main(argv=None):
     exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
     emit("experiment", card=smi, **exp)
 
-    # launches: the slice's (inference), the train phase's and the
-    # experiment phase's
-    paths = {"slice": res["launches"], "train": train["launches"], "experiment": exp["launches"]}
+    # launches: the slice's (inference), the train phase's, the experiment
+    # phase's and the warp-bisect tool's
+    paths = {"slice": res["launches"], "train": train["launches"], "experiment": exp["launches"],
+             "debug-warp": bisect["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"
-    replaces = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
+    pallas = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
     summary = []
-    for name, source, line, k, work in (
-            ("tps_warp_fwd", "tps_warp.cu", 315, kern["tps_warp_fwd"][main_dtype],
+    for name, source, replaces, k, work in (
+            ("tps_warp_fwd", "tps_warp.cu", pallas + "315", kern["tps_warp_fwd"][main_dtype],
              "B=24 192x192 C=8 %s (inference)" % main_dtype),
-            ("tps_warp_bwd", "tps_warp_bwd.cu", 269, kern["tps_warp_bwd"]["float32"],
+            ("tps_warp_bwd", "tps_warp_bwd.cu", pallas + "269", kern["tps_warp_bwd"]["float32"],
              "B=12 192x192 C=8 float32 (training)"),
-            ("nearest_warp", "nearest_warp.cu", 416, kern["rotation"]["kernel"],
+            ("nearest_warp", "nearest_warp.cu", pallas + "416", kern["rotation"]["kernel"],
              "B=6 192x192 float32, groups of 1+1+4+4, 4+4 and 1+1 channels: the 3 "
              "rotate_group launches of one training step"),
-            ("round_ste", "round_ste.cu", 58, kern["round_ste"]["train_float32"],
-             "(12, 8, 192, 192) float32: the anatomy of one training step's loss")):
+            ("round_ste", "round_ste.cu", pallas + "58", kern["round_ste"]["train_float32"],
+             "(12, 8, 192, 192) float32: the anatomy of one training step's loss"),
+            ("tps_flow_dbg", "tps_flow_dbg.cu", "tools/debug_warp_kernel.py:60",
+             kern["flow"]["B=24"], "B=24 192x192 float32, 5 values a point: B1's flow "
+             "stage at its inference shape")):
         summary.append({
             "name": name,
             "route": "cuda",
             "source": src + source,
-            "replaces": replaces + str(line),
+            "replaces": replaces,
             "launches": launches[name],
             "launches_by_path": {p: counts[name] for p, counts in paths.items()},
             "max_abs_err": k["max_abs_err"],

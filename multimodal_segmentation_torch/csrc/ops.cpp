@@ -2,7 +2,7 @@
 // registered with TORCH_LIBRARY for the CUDA dispatch key.
 //
 // Each kernel source (tps_warp.cu, tps_warp_bwd.cu, nearest_warp.cu,
-// round_ste.cu) keeps a plain C entry point; this file checks the tensors,
+// round_ste.cu, tps_flow_dbg.cu) keeps a plain C entry point; this file checks the tensors,
 // allocates the outputs with the caching allocator and calls the entry
 // point, in one call from Python. The checks raise ValueError
 // (TORCH_CHECK_VALUE); a launch error raises RuntimeError. The stream is the
@@ -36,6 +36,8 @@ int rotate_group(int n, const void* src0, const void* src1, const void* src2,
                  int C0, int C1, int C2, int C3, const void* cos_t, const void* sin_t,
                  int B, int H, int W, int elem_bytes, void* stream);
 int round_ste(const void* x, void* y, long long n, int elem_bytes, void* stream);
+int tps_flow_dbg(const void* wv, const void* cp, void* out, int B, int H, int W, int n_cp,
+                 void* stream);
 }
 
 namespace {
@@ -193,6 +195,25 @@ at::Tensor op_round_ste(const at::Tensor& x, int64_t stream) {
   return out;
 }
 
+// (B, H * W, 5) f32: flow in pixels (y, x), qy, qx, phi_0 per point
+at::Tensor op_tps_flow_dbg(const at::Tensor& wv, const at::Tensor& cp, int64_t H, int64_t W,
+                           int64_t stream) {
+  const char* name = "tps_flow_dbg";
+  TORCH_CHECK_VALUE(wv.is_cuda(), name, ": wv must be a CUDA tensor, got ", wv.device());
+  TORCH_CHECK_VALUE(wv.dim() == 3 && wv.size(0) >= 1 && wv.size(0) <= 65535, name,
+                    ": unsupported wv shape ", wv.sizes());
+  const int64_t B = wv.size(0);
+  check_f32(wv, name, "wv", {B, 28, 2}, wv);
+  check_f32(cp, name, "cp", {25, 2}, wv);
+  TORCH_CHECK_VALUE(H >= 2 && W >= 2 && H <= INT32_MAX && W <= INT32_MAX && H * W <= INT32_MAX,
+                    name, ": unsupported (H, W) = (", H, ", ", W, ")");
+  at::Tensor out = at::empty({B, H * W, 5}, wv.options());
+  launched(tps_flow_dbg(wv.data_ptr(), cp.data_ptr(), out.data_ptr(), i32(B), i32(H), i32(W),
+                        25, stream_of(stream)),
+           name);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(mmseg_cuda, m) {
@@ -201,6 +222,7 @@ TORCH_LIBRARY(mmseg_cuda, m) {
   m.def("nearest_warp(Tensor vol, Tensor locs, int stream) -> Tensor");
   m.def("rotate_group(Tensor[] arrays, Tensor cos_t, Tensor sin_t, int stream) -> Tensor[]");
   m.def("round_ste(Tensor x, int stream) -> Tensor");
+  m.def("tps_flow_dbg(Tensor wv, Tensor cp, int H, int W, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
@@ -209,4 +231,5 @@ TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
   m.impl("nearest_warp", &op_nearest_warp);
   m.impl("rotate_group", &op_rotate_group);
   m.impl("round_ste", &op_round_ste);
+  m.impl("tps_flow_dbg", &op_tps_flow_dbg);
 }

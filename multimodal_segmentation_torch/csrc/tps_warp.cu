@@ -18,7 +18,8 @@
 // Design. One thread per output point; the block's image index is
 // blockIdx.y, so the 28x2 coefficients and the 25x2 control points go to
 // shared memory once per block. Each point evaluates its own flow in f32
-// with the accurate logf (the RBF sum cancels heavily: no fast math), then
+// with the accurate logf (the RBF sum cancels heavily: no fast math;
+// tps_flow.cuh, which the flow-stage dump tps_flow_dbg.cu shares), then
 // reads each corner's C channels contiguously from the channels-last
 // source and accumulates in f32. Neighbouring threads are neighbouring
 // output pixels, so their C-channel writes are contiguous. The TPU
@@ -30,9 +31,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tps_flow.cuh"
+
 namespace {
 
-constexpr int kMaxControlPoints = 64;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -52,36 +54,15 @@ tps_warp_fwd_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
   __shared__ float s_wv[(kMaxControlPoints + 3) * 2];
   __shared__ float s_cp[kMaxControlPoints * 2];
   const int b = blockIdx.y;
-  const int n_wv = (n_cp + 3) * 2;
-  for (int i = threadIdx.x; i < n_wv; i += blockDim.x)
-    s_wv[i] = wv[(int64_t)b * n_wv + i];
-  for (int i = threadIdx.x; i < n_cp * 2; i += blockDim.x) s_cp[i] = cp[i];
+  tps_stage_coefficients(s_wv, s_cp, wv, cp, b, n_cp);
   __syncthreads();
 
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= H * W) return;
-  const int qi = q / W;
-  const int qj = q - qi * W;
-  // control_grid((H, W)): row-major (y, x), each axis divided by (dim - 1)
-  const float qy = (float)qi / (float)(H - 1);
-  const float qx = (float)qj / (float)(W - 1);
+  const TpsFlow f = tps_flow(q, H, W, s_wv, s_cp, n_cp);
 
-  float fy = 0.f;
-  float fx = 0.f;
-  for (int i = 0; i < n_cp; ++i) {
-    const float dy = qy - s_cp[2 * i];
-    const float dx = qx - s_cp[2 * i + 1];
-    const float d2 = dy * dy + dx * dx;
-    const float phi = 0.5f * d2 * logf(fmaxf(d2, 1e-10f));
-    fy += phi * s_wv[2 * i];
-    fx += phi * s_wv[2 * i + 1];
-  }
-  const float* v = s_wv + 2 * n_cp;  // affine rows multiply qy, qx, 1
-  fy += qy * v[0] + qx * v[2] + v[4];
-  fx += qy * v[1] + qx * v[3] + v[5];
-
-  const float y = fy * (float)(H - 1);
-  const float x = fx * (float)(W - 1);
+  const float y = f.fy * (float)(H - 1);
+  const float x = f.fx * (float)(W - 1);
 
   T* o = out + ((int64_t)b * H * W + q) * C;
   // Every corner is out of range (or has weight 0) unless -1 < y < H and

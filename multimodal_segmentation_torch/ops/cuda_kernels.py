@@ -83,7 +83,8 @@ TPS_WARP_FWD = Kernel("tps_warp_fwd", "tps_warp.cu", ("tps_warp_fwd",))
 TPS_WARP_BWD = Kernel("tps_warp_bwd", "tps_warp_bwd.cu", ("tps_warp_bwd",))
 NEAREST_WARP = Kernel("nearest_warp", "nearest_warp.cu", ("nearest_warp", "rotate_group"))
 ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
-KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE)
+TPS_FLOW_DBG = Kernel("tps_flow_dbg", "tps_flow_dbg.cu", ("tps_flow_dbg",))
+KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG)
 _lock = threading.Lock()
 
 
@@ -132,10 +133,12 @@ def build_all():
 
 
 def _stale():
+    """Whether the library is missing or older than any file under csrc/:
+    the kernel sources, ops.cpp and the headers they include."""
     if not os.path.exists(LIBRARY):
         return True
     built = os.path.getmtime(LIBRARY)
-    return any(os.path.getmtime(src) > built for src in [BINDING] + [k.source for k in KERNELS])
+    return any(os.path.getmtime(os.path.join(CSRC_DIR, f)) > built for f in os.listdir(CSRC_DIR))
 
 
 def _load():
@@ -302,3 +305,29 @@ def round_ste(x):
     """
     _cuda(x, "round_ste", "x")
     return _launch(ROUND_STE, "round_ste", x, x, count=int(x.numel() > 0))
+
+
+def tps_flow_dbg(wv, cp, vol_shape):
+    """The TPS warp's flow stage, dumped per point, on the GPU
+    (csrc/tps_flow_dbg.cu).
+
+    Replaces tools/debug_warp_kernel.py::flow_dbg, the TPU bisect of the
+    fused warp's flow stage. It runs the flow code of tps_warp_fwd
+    (csrc/tps_flow.cuh) and writes, per output point, what the warp would
+    blend at. Its bound is the bytes, B x H x W x 20 written (17.7 MB at
+    B=24, 192x192); its time is the flow's arithmetic (25 accurate logf a
+    point), several times that bound.
+
+    Args:
+      wv: (B, 28, 2) contiguous CUDA float32 spline coefficients [w; v]
+        (ops/tps.py::tps_coefficients).
+      cp: (25, 2) contiguous float32 control points on wv's device.
+      vol_shape: (H, W) of the image the flow warps.
+
+    Returns:
+      (B, H*W, 5) float32: per point the flow in pixels (y, x), the
+      normalised query point (qy, qx) and the first radial basis term.
+    """
+    _cuda(wv, "tps_flow_dbg", "wv")
+    H, W = vol_shape
+    return _launch(TPS_FLOW_DBG, "tps_flow_dbg", wv, wv, cp, int(H), int(W))

@@ -20,6 +20,10 @@ custom_vjp does (ops/tps.py:268-288). For a tensor on the CPU it is the
 plain version (`_tps_warp_plain`: sample locations + bilinear gather),
 differentiated by autograd. The flow stays f32 throughout;
 reduced-precision matmul passes cost ~0.7 px of flow at 192^2.
+
+`tps_flow_stage` is the warp's flow stage alone, per point, for bisecting
+the warp: on the GPU kernel B5 (cuda_kernels.tps_flow_dbg, which runs the
+fused kernel's own flow code), on the CPU `_tps_flow_stage_plain`.
 """
 
 import functools
@@ -27,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd, tps_warp_fwd
+from multimodal_segmentation_torch.ops.cuda_kernels import tps_flow_dbg, tps_warp_bwd, tps_warp_fwd
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
 
 _EPSILON = 1e-10  # matches reference layers/interpolate_spline.py:27
@@ -197,3 +201,60 @@ def tps_warp(vol, cp_offsets, cp_dims=(5, 5)):
     if vol.device.type != "cpu":
         raise ValueError("tps_warp runs on 'cuda' or 'cpu', got %s" % vol.device)
     return _tps_warp_plain(vol, cp_offsets, cp_dims)
+
+
+def _tps_flow_stage_plain(wv, cp, vol_shape):
+    """Plain PyTorch version of the flow-stage dump (kernel tps_flow_dbg):
+    the fused kernel's flow formula and order, term by term, with direct
+    differences q - c_i (not _sq_dist's expanded form), in f32.
+
+    Args:
+      wv: (B, n_cp + 3, 2) f32 coefficients [w; v] (tps_coefficients).
+      cp: (n_cp, 2) f32 control points, (y, x).
+      vol_shape: (H, W).
+
+    Returns:
+      (B, H*W, 5) f32: flow_y * (H-1), flow_x * (W-1), qy, qx, phi_0.
+    """
+    H, W = vol_shape
+    B, n_cp = wv.shape[0], cp.shape[0]
+    q = torch.arange(H * W, device=wv.device)
+    qi = torch.div(q, W, rounding_mode="floor")
+    qy = qi.float() / float(H - 1)
+    qx = (q - qi * W).float() / float(W - 1)
+    fy = wv.new_zeros(B, H * W)
+    fx = wv.new_zeros(B, H * W)
+    for i in range(n_cp):
+        dy = qy - cp[i, 0]
+        dx = qx - cp[i, 1]
+        d2 = dy * dy + dx * dx
+        phi = 0.5 * d2 * torch.log(torch.clamp(d2, min=_EPSILON))
+        if i == 0:
+            phi0 = phi
+        fy = fy + phi * wv[:, i, 0:1]
+        fx = fx + phi * wv[:, i, 1:2]
+    v = wv[:, n_cp:]   # rows multiply qy, qx, 1
+    fy = fy + (qy * v[:, 0, 0:1] + qx * v[:, 1, 0:1] + v[:, 2, 0:1])
+    fx = fx + (qy * v[:, 0, 1:2] + qx * v[:, 1, 1:2] + v[:, 2, 1:2])
+    per_point = torch.stack([qy, qx, phi0], -1).expand(B, -1, -1)
+    return torch.cat([torch.stack([fy * float(H - 1), fx * float(W - 1)], -1), per_point], -1)
+
+
+def tps_flow_stage(wv, cp, vol_shape):
+    """The warp's flow stage alone, per output point: what tps_warp blends at.
+
+    Args:
+      wv: (B, 28, 2) f32 coefficients [w; v] (tps_coefficients).
+      cp: (25, 2) f32 control points (control_grid((5, 5))), on wv's device.
+      vol_shape: (H, W) of the image the flow warps.
+
+    Returns:
+      (B, H*W, 5) f32: per point the flow in pixels (y, x), the normalised
+      query point (qy, qx) and the first radial basis term phi_0. On the
+      GPU this launches kernel B5, on the CPU it runs the plain version.
+    """
+    if wv.device.type == "cuda":
+        return tps_flow_dbg(wv, cp, vol_shape)
+    if wv.device.type != "cpu":
+        raise ValueError("tps_flow_stage runs on 'cuda' or 'cpu', got %s" % wv.device)
+    return _tps_flow_stage_plain(wv, cp, vol_shape)

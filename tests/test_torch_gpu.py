@@ -6,6 +6,9 @@ card's machine has no JAX and tests/conftest.py imports it; run there with
 
 Without a CUDA device every test here skips."""
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +16,7 @@ import torch
 from multimodal_segmentation_torch.config import dafnet_chaos, tiny_test_config
 from multimodal_segmentation_torch.models import build_model
 from multimodal_segmentation_torch.ops import augment, cuda_kernels, tps
+from multimodal_segmentation_torch.ops.resample import bilinear_sample
 from multimodal_segmentation_torch.train import DAFNetSteps, create_train_state
 from torch_warp_reference import offsets_gradient_reference
 
@@ -96,6 +100,83 @@ def test_wrapper_rejects_bad_inputs(cuda):
     for args in bad:
         with pytest.raises(ValueError):
             cuda_kernels.tps_warp_fwd(*args)
+
+
+# --------------------------------------------------- flow-stage dump (B5)
+
+def _flow_inputs(device, B, scale=0.05, seed=0):
+    r = np.random.RandomState(seed)
+    off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * scale).astype(np.float32)).to(device)
+    return off, tps.tps_coefficients(off), tps.control_grid((5, 5), device)
+
+
+@pytest.mark.parametrize("B,H,W", [(2, 192, 192), (12, 192, 192), (3, 33, 47)])
+def test_flow_kernel_matches_plain(cuda, B, H, W):
+    """B5 against its plain version (the same formula and order, in torch
+    on the card) at the tool's shape, the training shape and an odd one:
+    qy, qx and phi_0 within 1e-6; the flow within 2e-4 px at offsets of
+    +-0.025 and within 1e-3 px at +-0.3, whose ~10x larger coefficients
+    scale the f32 roundoff of the sum (2.9e-4 px from float64 for the
+    plain version at 192x192 on the CPU); tps_flow_stage launches it."""
+    for scale, tol in ((0.05, 2e-4), (0.6, 1e-3)):
+        _, wv, cp = _flow_inputs(cuda, B, scale)
+        before = cuda_kernels.TPS_FLOW_DBG.launches
+        got = tps.tps_flow_stage(wv, cp, (H, W))
+        assert cuda_kernels.TPS_FLOW_DBG.launches == before + 1
+        ref = tps._tps_flow_stage_plain(wv, cp, (H, W))
+        torch.cuda.synchronize()
+        assert got.shape == (B, H * W, 5) and got.dtype == torch.float32
+        err = (got - ref).abs().amax((0, 1)).tolist()
+        assert err[0] <= tol and err[1] <= tol, (scale, err)
+        assert max(err[2:]) <= 1e-6, (scale, err)
+
+
+def test_flow_kernel_and_warp_kernel_share_the_flow(cuda):
+    """B1's output is a bilinear blend at B5's locations, to f32 roundoff
+    of the blend (1e-5 on inputs in [0, 1]), at the training shape: a flow
+    that differed at all would flip floor() at pixel edges and move the
+    output by the image's gradient."""
+    B, H, W, C = 12, 192, 192, 8
+    off, wv, cp = _flow_inputs(cuda, B)
+    vol = torch.from_numpy(np.random.RandomState(1).rand(B, H, W, C).astype(np.float32)).to(cuda)
+    locs = cuda_kernels.tps_flow_dbg(wv, cp, (H, W))[..., :2].contiguous()
+    warped = cuda_kernels.tps_warp_fwd(vol, wv, cp)
+    blended = bilinear_sample(vol, locs).reshape(B, H, W, C)
+    torch.cuda.synchronize()
+    assert (warped - blended).abs().max().item() <= 1e-5
+
+
+def test_flow_wrapper_rejects_bad_inputs(cuda):
+    _, wv, cp = _flow_inputs(cuda, 2)
+    bad = [
+        (wv.cpu(), cp, (8, 8)),                        # device
+        (wv[:, :27], cp, (8, 8)),                      # wv shape
+        (wv[0], cp, (8, 8)),                           # wv not 3-D
+        (wv.double(), cp, (8, 8)),                     # wv dtype
+        (wv.transpose(1, 2).contiguous().transpose(1, 2), cp, (8, 8)),  # not contiguous
+        (wv, cp[:24], (8, 8)),                         # cp shape
+        (wv, cp.cpu(), (8, 8)),                        # cp device
+        (wv, cp, (1, 8)),                              # H < 2
+        (wv, cp, (8, 2 ** 31)),                        # H * W past int32
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            cuda_kernels.tps_flow_dbg(*args)
+
+
+def test_built_library_goes_stale_with_a_newer_flow_header(cuda, tmp_path, monkeypatch):
+    """The library built on the card is fresh; a copy of csrc/ whose shared
+    header tps_flow.cuh is newer than it makes it stale."""
+    cuda_kernels.TPS_FLOW_DBG.fn()
+    assert not cuda_kernels._stale()
+    built = os.path.getmtime(cuda_kernels.LIBRARY)
+    for f in os.listdir(cuda_kernels.CSRC_DIR):
+        shutil.copy(os.path.join(cuda_kernels.CSRC_DIR, f), tmp_path / f)
+        os.utime(tmp_path / f, (built - 10, built - 10))
+    monkeypatch.setattr(cuda_kernels, "CSRC_DIR", str(tmp_path))
+    assert not cuda_kernels._stale()
+    os.utime(tmp_path / "tps_flow.cuh", (built + 10, built + 10))
+    assert cuda_kernels._stale()
 
 
 # ------------------------------------------------------- warp backward (B2)
@@ -484,14 +565,16 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
     ts, metrics = steps.step_supervised(ts, _expert_batch(conf))
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
-                                            "nearest_warp": 3, "round_ste": 2}
+                                            "nearest_warp": 3, "round_ste": 2,
+                                            "tps_flow_dbg": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
 
 
 def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     """One tiny executor epoch (3 steps, validation, image callback,
-    checkpoint) on the card: every kernel launches, B4 among them, and
+    checkpoint) on the card: every kernel of the path launches, B4 among
+    them (the flow-stage dump B5 is on no training path), and
     after the first step, which copies ops/tps.py's constants to the card
     once, no CPU tensor of more than one element enters any operation of a
     step (0-d ones are Python scalars and Adam's step counts)."""
@@ -530,6 +613,7 @@ def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     torch.cuda.synchronize()
     launches = cuda_kernels.launch_counts()
     assert ts.step == 3 and ts.epoch == 0
+    assert launches.pop("tps_flow_dbg") == 0
     assert all(n > 0 for n in launches.values()), launches
     assert launches["round_ste"] >= 2 * 3 + 6   # 3 steps, 6 validation predictions
     assert on_cpu == []
