@@ -13,7 +13,8 @@ Phases, one JSON line each:
                 ran for a call, summed from a torch.profiler window),
                 `host_ms` (host time to enqueue a call), the bound, the
                 plain version's time and the library call's `library_ms`,
-                `library_device_ms` and `library_host_ms` (tps_warp_fwd;
+                `library_device_ms` and `library_host_ms` (tps_warp_fwd at
+                the inference and training shapes in f32 and bf16;
                 tps_warp_bwd with small, large, zero, scattered,
                 window-edge and border locations, g contiguous and
                 channels-first; `rotation`: a training step's three
@@ -39,6 +40,9 @@ Phases, one JSON line each:
                 loader's split-0 training data: every metric of every step,
                 ms per step and slices/s, kernel launches per step (2/1/3/2),
                 peak device memory, which parameters moved
+  train-bf16    the same at compute_dtype bfloat16 (f32 parameters,
+                statistics, losses and Adam moments): the same checks, and
+                its p50 over the f32 row's
   train-cross-device
                 one step_supervised at the tiny config on the card and on
                 the CPU, same weights, batch and noise: relative difference
@@ -57,7 +61,8 @@ line. Any failed check raises, and the script exits non-zero without a
 result line; so it does without a CUDA device, or outside the repository.
 
   python3 chip_smoke.py                  # needs one CUDA device
-  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train,
+  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train (f32
+                                         # and bf16), train-cross-device,
                                          # debug-warp and experiment at the
                                          # tiny config on the CPU with the
                                          # plain versions; no result line
@@ -248,7 +253,7 @@ def grid_of(torch, locs, H, W):
 def warp_fwd_phase(torch, dev):
     """tps_warp_fwd at the inference shapes: B = 24 (a padded volume),
     192x192, C = 8 anatomy channels, bf16 and f32; and at the training
-    shape, B = 12 (both fusion directions of batch 6), f32."""
+    shapes, B = 12 (both fusion directions of batch 6), f32 and bf16."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -264,9 +269,11 @@ def warp_fwd_phase(torch, dev):
                              padding_mode="zeros", align_corners=True)
 
     def timed(vol, off):
-        # bound: each input read once, the output written once; operations
-        # per point: 25 RBF terms of ~13 (a logf counted as one) + ~20 for
-        # the affine term and corner weights + 8 per channel for the blend
+        # bound: each input read once, the output written once; operations:
+        # the basis once a point (25 terms of ~9, a logf counted as one),
+        # and per point and image the flow's sums (25 x 2 FMAs), ~20 for
+        # the affine term and corner weights and 8 per channel for the blend
+        B = vol.shape[0]
         wv = tps.tps_coefficients(off)
         grid = grid_of(torch, tps.tps_sample_locations(off, (H, W)), H, W).to(vol.dtype)
         nbytes = vol.numel() * vol.element_size()
@@ -274,7 +281,7 @@ def warp_fwd_phase(torch, dev):
                       lambda v: tps_warp_fwd(v, wv, cp), lambda v: tps._tps_warp_plain(v, off),
                       lambda v: library(v, grid),
                       2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
-                      vol.shape[0] * H * W * (25 * 13 + 20 + 8 * C))
+                      H * W * 25 * 9 + B * H * W * (25 * 4 + 20 + 8 * C))
         out["library_max_abs_diff"] = (library(vol, grid).permute(0, 2, 3, 1).float()
                                        - tps_warp_fwd(vol, wv, cp).float()).abs().max().item()
         return out
@@ -312,14 +319,18 @@ def warp_fwd_phase(torch, dev):
         res[name] = {"max_abs_err": max(errs.values()), "errors": errs, "cases": cover,
                      **timed(vol, cases["small"])}
 
-    # the training shape: B = 12, f32, offsets like a trained LocNet's
+    # the training shapes: B = 12, f32 and bf16, offsets like a trained
+    # LocNet's
     B = 12
     vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
     off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
-    err = (tps_warp_fwd(vol, tps.tps_coefficients(off), cp)
-           - tps._tps_warp_plain(vol, off)).abs().max().item()
-    check(err <= 2e-4, "tps_warp_fwd training shape error %.3g > 2e-4" % err)
-    res["train_float32"] = {"shape": [B, H, W, C], "max_abs_err": err, **timed(vol, off)}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+        name = str(dtype).replace("torch.", "")
+        v = vol.to(dtype)
+        err = (tps_warp_fwd(v, tps.tps_coefficients(off), cp).float()
+               - tps._tps_warp_plain(v, off).float()).abs().max().item()
+        check(err <= tol, "tps_warp_fwd training shape %s error %.3g > %g" % (name, err, tol))
+        res["train_" + name] = {"shape": [B, H, W, C], "max_abs_err": err, **timed(v, off)}
     return res
 
 
@@ -731,8 +742,9 @@ def flow_phase(torch, dev):
             check(stages <= 1e-5, "B1 against a blend at B5's locations, B=%d: %.3g > 1e-5"
                   % (B, stages))
             # bound: the output written once, the coefficients and control
-            # points read once; per point 25 RBF terms of ~13 operations (a
-            # logf counted as one) and ~10 for the affine term and scaling
+            # points read once; the basis once a point (25 terms of ~9
+            # operations, a logf counted as one), and per point and image
+            # the sums (25 x 2 FMAs) and ~10 for the affine term and scaling
             nbytes = got.numel() * 4
             bufs = rotating(lambda: wv.clone(), nbytes)
             keep = collections.deque(maxlen=len(bufs))
@@ -740,7 +752,7 @@ def flow_phase(torch, dev):
             out.update(measure(bufs, lambda w: keep.append(tps_flow_dbg(w, cp, (H, W))),
                                lambda w: tps._tps_flow_stage_plain(w, cp, (H, W)), None,
                                nbytes + wv.numel() * 4 + cp.numel() * 4,
-                               B * H * W * (25 * 13 + 10)))
+                               H * W * 25 * 9 + B * H * W * (25 * 4 + 10)))
             keep.clear()
         res["B=%d" % B] = out
     return res
@@ -1264,6 +1276,9 @@ def main(argv=None):
         emit("slice", **res)
         emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cpu"))
         emit("train", **train_phase(torch, config.tiny_test_config(), "cpu", 1, 2))
+        bf16 = config.tiny_test_config()
+        bf16.compute_dtype = "bfloat16"
+        emit("train-bf16", **train_phase(torch, bf16, "cpu", 1, 2))
         emit("train-cross-device", **train_cross_device_phase(torch, "cpu"))
         emit("debug-warp", **debug_warp_phase(torch, "cpu"))
         config.PRESETS.setdefault("tiny", config.tiny_test_config)
@@ -1309,6 +1324,7 @@ def main(argv=None):
         "train B=12 f32": kern["flow"]["B=12"]["device_ms"] / fwd["train_float32"]["device_ms"],
         "infer B=24 bf16": kern["flow"]["B=24"]["device_ms"] / fwd["bfloat16"]["device_ms"],
         "infer B=24 f32": kern["flow"]["B=24"]["device_ms"] / fwd["float32"]["device_ms"],
+        "train B=12 bf16": kern["flow"]["B=12"]["device_ms"] / fwd["train_bfloat16"]["device_ms"],
     }
     emit("kernels", card=smi, **kern)
     bisect = debug_warp_phase(torch, "cuda")
@@ -1325,13 +1341,18 @@ def main(argv=None):
     conf.dataset_name = "synthetic"
     train = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
     emit("train", card=smi, **train)
+    conf.compute_dtype = "bfloat16"
+    train_bf16 = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
+    train_bf16["p50_over_f32"] = train_bf16["p50_ms_per_step"] / train["p50_ms_per_step"]
+    emit("train-bf16", card=smi, **train_bf16)
     emit("train-cross-device", **train_cross_device_phase(torch, "cuda"))
     exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
     emit("experiment", card=smi, **exp)
 
-    # launches: the slice's (inference), the train phase's, the experiment
-    # phase's and the warp-bisect tool's
-    paths = {"slice": res["launches"], "train": train["launches"], "experiment": exp["launches"],
+    # launches: the slice's (inference), the train phases' (f32 and bf16),
+    # the experiment phase's and the warp-bisect tool's
+    paths = {"slice": res["launches"], "train": train["launches"],
+             "train-bf16": train_bf16["launches"], "experiment": exp["launches"],
              "debug-warp": bisect["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"

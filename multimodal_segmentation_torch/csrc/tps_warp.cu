@@ -9,22 +9,34 @@
 //   out[b, q, :] = bilinear blend of the 4 corners around (y, x), where a
 //                  corner outside the image contributes 0.
 //
-// Bound. At the inference shapes (B = padded volume length ~24, 192x192,
-// C = 8) the kernel must read vol once and write out once: 2 x 28.3 MB in
-// f32, 2 x 14.2 MB in bf16, against 3.35 TB/s of HBM. The flow costs
-// 25 logf and ~12 FLOP per term per point (~0.3 GFLOP), far below the
-// f32 rate, so the kernel is memory-bound.
+// Bound. At the main path's shapes (192x192, C = 8; B = 12 in training,
+// B ~ 24 a padded volume in inference) the kernel must read vol once and
+// write out once: 28.3 MB at B = 12 in f32 and at B = 24 in bf16, 8.5 us
+// at 3.35 TB/s. On the H100 it takes 1.7-2.9 times that (PERF.md):
+// what bounds it is the instructions a (point, image) pair issues, ~300 in
+// SASS (the flow's 50 FMAs and their coefficient loads, the corners'
+// weights and addresses, the blend), and the latency of its corner loads.
+// The bytes come third. Before this design one thread served one point of
+// one image and evaluated the 25 accurate logf of the basis for each
+// image (~800 instructions), 0.62-0.84 of the kernel's time.
 //
-// Design. One thread per output point; the block's image index is
-// blockIdx.y, so the 28x2 coefficients and the 25x2 control points go to
-// shared memory once per block. Each point evaluates its own flow in f32
-// with the accurate logf (the RBF sum cancels heavily: no fast math;
-// tps_flow.cuh, which the flow-stage dump tps_flow_dbg.cu shares), then
-// reads each corner's C channels contiguously from the channels-last
-// source and accumulates in f32. Neighbouring threads are neighbouring
-// output pixels, so their C-channel writes are contiguous. The TPU
-// kernel's one-hot blend matmuls, channel-major relayout, 32-row padding
-// and 128-lane constraints are not carried over.
+// Design. The basis phi_i of a point is evaluated once for a chunk of 8
+// images and each image's flow is summed from it and that image's [w; v],
+// staged in shared memory (tps_flow.cuh, which the flow-stage dump
+// tps_flow_dbg.cu shares); in f32 with the accurate logf (the RBF sum
+// cancels heavily: no fast math), in the order the one-image-a-thread
+// kernel used, so the output is that kernel's bits. A thread serves one
+// point of the chunk's images in turn: it issues an image's corner loads,
+// sums the next image's flow while they are in flight, then blends. Each
+// corner's C channels are read contiguously from the channels-last source,
+// 16 bytes a load where C * sizeof(T) is a multiple of 16 and both
+// pointers are 16-byte aligned (C = 8: two loads a corner in f32, one in
+// bf16), else a channel at a time; the blend accumulates in f32.
+// Neighbouring threads are neighbouring output pixels, so a warp's writes
+// are contiguous. Of the layouts measured (images a block, the basis in
+// registers or in shared memory), this one was the fastest (PERF.md). The
+// TPU kernel's one-hot blend matmuls, channel-major
+// relayout, 32-row padding and 128-lane constraints are not carried over.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -35,8 +47,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
@@ -46,89 +56,224 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// 16 bytes of channels: 4 f32 or 8 bf16, unpacked to f32 and packed back
+// (a bf16 is the high half of its f32, so unpacking is exact).
 template <typename T>
+struct Word;
+
+template <>
+struct Word<float> {
+  static constexpr int kLanes = 4;
+  __device__ __forceinline__ static void unpack(uint4 w, float* v) {
+    v[0] = __uint_as_float(w.x);
+    v[1] = __uint_as_float(w.y);
+    v[2] = __uint_as_float(w.z);
+    v[3] = __uint_as_float(w.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* v) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int kLanes = 8;
+  __device__ __forceinline__ static void unpack(uint4 w, float* v) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float* v) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
+__device__ __forceinline__ uint4 load_word(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// The bilinear blend of image b at pixel location (y, x) into out[b, q, :],
+// in two stages: start finds the corners and their weights and, with
+// kWords > 0 (C * sizeof(T) = 16 * kWords), issues the loads of their
+// channels; finish blends and stores. kWords = 0 reads a channel at a
+// time, kWords = -1 16 bytes at a time for any C * sizeof(T) that is a
+// multiple of 16; both load in finish.
+template <typename T, int kWords>
+struct Pixel {
+  T* o;
+  const T* p00;  // corner (y0, x0); the others follow at + C, + W * C
+  bool inside, m00, m01, m10, m11;
+  float w00, w01, w10, w11;
+  uint4 v[4][kWords > 0 ? kWords : 1];
+
+  __device__ __forceinline__ static Pixel start(const T* __restrict__ vol, T* __restrict__ out,
+                                                int b, int q, int H, int W, int C, float y,
+                                                float x) {
+    Pixel px;
+    px.o = out + ((int64_t)b * H * W + q) * C;
+    // Every corner is out of range (or has weight 0) unless -1 < y < H and
+    // -1 < x < W. Testing that first also rejects NaN and huge values
+    // before the int conversion below.
+    px.inside = y > -1.f && y < (float)H && x > -1.f && x < (float)W;
+    if (!px.inside) return px;
+    const float y0f = floorf(y);
+    const float x0f = floorf(x);
+    const int y0 = (int)y0f;
+    const int x0 = (int)x0f;
+    const float wy1 = y - y0f;
+    const float wx1 = x - x0f;
+    const float wy0 = 1.f - wy1;
+    const float wx0 = 1.f - wx1;
+    const bool in_y0 = y0 >= 0;
+    const bool in_y1 = y0 + 1 <= H - 1;
+    const bool in_x0 = x0 >= 0;
+    const bool in_x1 = x0 + 1 <= W - 1;
+    px.m00 = in_y0 && in_x0;
+    px.m01 = in_y0 && in_x1;
+    px.m10 = in_y1 && in_x0;
+    px.m11 = in_y1 && in_x1;
+    px.w00 = wy0 * wx0;
+    px.w01 = wy0 * wx1;
+    px.w10 = wy1 * wx0;
+    px.w11 = wy1 * wx1;
+    px.p00 = vol + ((int64_t)b * H * W + (int64_t)y0 * W + x0) * C;
+    if constexpr (kWords > 0) {
+      const T* p10 = px.p00 + (int64_t)W * C;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) {
+        const int c = w * Word<T>::kLanes;
+        px.v[0][w] = px.m00 ? load_word(px.p00 + c) : uint4{};
+        px.v[1][w] = px.m01 ? load_word(px.p00 + C + c) : uint4{};
+        px.v[2][w] = px.m10 ? load_word(p10 + c) : uint4{};
+        px.v[3][w] = px.m11 ? load_word(p10 + C + c) : uint4{};
+      }
+    }
+    return px;
+  }
+
+  // acc = sum of the in-range corners' value * weight, in the order 00, 01,
+  // 10, 11, from 0 (the one-image-a-thread kernel's expressions).
+  __device__ __forceinline__ void blend_word(const uint4* corner, uint4* dst) const {
+    constexpr int L = Word<T>::kLanes;
+    float a[4][L], acc[L];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) Word<T>::unpack(corner[k], a[k]);
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      acc[l] = 0.f;
+      if (m00) acc[l] += a[0][l] * w00;
+      if (m01) acc[l] += a[1][l] * w01;
+      if (m10) acc[l] += a[2][l] * w10;
+      if (m11) acc[l] += a[3][l] * w11;
+    }
+    *dst = Word<T>::pack(acc);
+  }
+
+  __device__ __forceinline__ void finish(int C, int W) const {
+    if constexpr (kWords != 0) {
+      constexpr int L = Word<T>::kLanes;
+      if (!inside) {
+        for (int c = 0; c < C; c += L) *reinterpret_cast<uint4*>(o + c) = make_uint4(0, 0, 0, 0);
+        return;
+      }
+      if constexpr (kWords > 0) {
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) {
+          const uint4 corner[4] = {v[0][w], v[1][w], v[2][w], v[3][w]};
+          blend_word(corner, reinterpret_cast<uint4*>(o + w * L));
+        }
+      } else {
+        const T* p10 = p00 + (int64_t)W * C;
+        for (int c = 0; c < C; c += L) {
+          const uint4 corner[4] = {m00 ? load_word(p00 + c) : uint4{},
+                                   m01 ? load_word(p00 + C + c) : uint4{},
+                                   m10 ? load_word(p10 + c) : uint4{},
+                                   m11 ? load_word(p10 + C + c) : uint4{}};
+          blend_word(corner, reinterpret_cast<uint4*>(o + c));
+        }
+      }
+    } else {
+      if (!inside) {
+        for (int c = 0; c < C; ++c) store_f32(o + c, 0.f);
+        return;
+      }
+      const T* p01 = p00 + C;
+      const T* p10 = p00 + (int64_t)W * C;
+      const T* p11 = p10 + C;
+#pragma unroll 8
+      for (int c = 0; c < C; ++c) {
+        float acc = 0.f;
+        if (m00) acc += load_f32(p00 + c) * w00;
+        if (m01) acc += load_f32(p01 + c) * w01;
+        if (m10) acc += load_f32(p10 + c) * w10;
+        if (m11) acc += load_f32(p11 + c) * w11;
+        store_f32(o + c, acc);
+      }
+    }
+  }
+};
+
+template <typename T, int kWords>
 __global__ void __launch_bounds__(kThreads)
 tps_warp_fwd_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
-                    const float* __restrict__ cp, T* __restrict__ out, int H,
-                    int W, int C, int n_cp) {
-  __shared__ float s_wv[(kMaxControlPoints + 3) * 2];
-  __shared__ float s_cp[kMaxControlPoints * 2];
-  const int b = blockIdx.y;
-  tps_stage_coefficients(s_wv, s_cp, wv, cp, b, n_cp);
-  __syncthreads();
+                    const float* __restrict__ cp, T* __restrict__ out, int B, int H,
+                    int W, int C) {
+  tps_for_each_point_image(
+      wv, cp, B, H, W,
+      [&](int b, int q, float, float, float, float fy, float fx) {
+        return Pixel<T, kWords>::start(vol, out, b, q, H, W, C, fy * (float)(H - 1),
+                                       fx * (float)(W - 1));
+      },
+      [&](const Pixel<T, kWords>& px) { px.finish(C, W); });
+}
 
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= H * W) return;
-  const TpsFlow f = tps_flow(q, H, W, s_wv, s_cp, n_cp);
+template <typename T, int kWords>
+void launch(const void* vol, const void* wv, const void* cp, void* out, int B, int H, int W,
+            int C, cudaStream_t s) {
+  tps_warp_fwd_kernel<T, kWords><<<tps_grid(B, H, W), kThreads, 0, s>>>(
+      (const T*)vol, (const float*)wv, (const float*)cp, (T*)out, B, H, W, C);
+}
 
-  const float y = f.fy * (float)(H - 1);
-  const float x = f.fx * (float)(W - 1);
-
-  T* o = out + ((int64_t)b * H * W + q) * C;
-  // Every corner is out of range (or has weight 0) unless -1 < y < H and
-  // -1 < x < W. Testing that first also rejects NaN and huge values before
-  // the int conversion below.
-  if (!(y > -1.f && y < (float)H && x > -1.f && x < (float)W)) {
-    for (int c = 0; c < C; ++c) store_f32(o + c, 0.f);
-    return;
-  }
-
-  const float y0f = floorf(y);
-  const float x0f = floorf(x);
-  const int y0 = (int)y0f;
-  const int x0 = (int)x0f;
-  const float wy1 = y - y0f;
-  const float wx1 = x - x0f;
-  const float wy0 = 1.f - wy1;
-  const float wx0 = 1.f - wx1;
-  const bool in_y0 = y0 >= 0;
-  const bool in_y1 = y0 + 1 <= H - 1;
-  const bool in_x0 = x0 >= 0;
-  const bool in_x1 = x0 + 1 <= W - 1;
-
-  const T* src = vol + (int64_t)b * H * W * C;
-  const T* p00 = src + ((int64_t)y0 * W + x0) * C;
-  const T* p01 = p00 + C;
-  const T* p10 = p00 + (int64_t)W * C;
-  const T* p11 = p10 + C;
-  const float w00 = wy0 * wx0;
-  const float w01 = wy0 * wx1;
-  const float w10 = wy1 * wx0;
-  const float w11 = wy1 * wx1;
-
-#pragma unroll 8
-  for (int c = 0; c < C; ++c) {
-    float acc = 0.f;
-    if (in_y0 && in_x0) acc += load_f32(p00 + c) * w00;
-    if (in_y0 && in_x1) acc += load_f32(p01 + c) * w01;
-    if (in_y1 && in_x0) acc += load_f32(p10 + c) * w10;
-    if (in_y1 && in_x1) acc += load_f32(p11 + c) * w11;
-    store_f32(o + c, acc);
-  }
+template <typename T>
+void launch_words(const void* vol, const void* wv, const void* cp, void* out, int B, int H,
+                  int W, int C, cudaStream_t s) {
+  const int bytes = C * (int)sizeof(T);
+  const bool aligned = (uintptr_t)vol % 16 == 0 && (uintptr_t)out % 16 == 0 && bytes % 16 == 0;
+  if (aligned && bytes == 16)
+    launch<T, 1>(vol, wv, cp, out, B, H, W, C, s);
+  else if (aligned && bytes == 32)
+    launch<T, 2>(vol, wv, cp, out, B, H, W, C, s);
+  else if (aligned)
+    launch<T, -1>(vol, wv, cp, out, B, H, W, C, s);
+  else
+    launch<T, 0>(vol, wv, cp, out, B, H, W, C, s);
 }
 
 }  // namespace
 
-// vol, out: (B, H, W, C) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1).
-// wv: (B, n_cp + 3, 2) f32. cp: (n_cp, 2) f32. Launches on `stream` and
-// returns cudaGetLastError() after the launch.
-extern "C" int tps_warp_fwd(const void* vol, const void* wv, const void* cp,
-                            void* out, int B, int H, int W, int C, int n_cp,
-                            int is_bf16, void* stream) {
-  if (B < 1 || B > 65535 || H < 2 || W < 2 || C < 1 || n_cp < 1 ||
-      n_cp > kMaxControlPoints || (int64_t)H * W > INT32_MAX)
+// vol, out: (B, H, W, C) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// 1 <= B <= 65535. wv: (B, n_cp + 3, 2) f32. cp: (n_cp, 2) f32; n_cp must
+// be 25. Launches on `stream` and returns cudaGetLastError() after the
+// launch.
+extern "C" int tps_warp_fwd(const void* vol, const void* wv, const void* cp, void* out,
+                            int B, int H, int W, int C, int n_cp, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 2 || W < 2 || C < 1 || n_cp != kControlPoints ||
+      (int64_t)H * W > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const int64_t points = (int64_t)H * W;
-  const dim3 grid((unsigned)((points + kThreads - 1) / kThreads), (unsigned)B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    tps_warp_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)vol, (const float*)wv, (const float*)cp,
-        (__nv_bfloat16*)out, H, W, C, n_cp);
-  } else {
-    tps_warp_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)vol, (const float*)wv, (const float*)cp, (float*)out, H,
-        W, C, n_cp);
-  }
+  if (is_bf16)
+    launch_words<__nv_bfloat16>(vol, wv, cp, out, B, H, W, C, s);
+  else
+    launch_words<float>(vol, wv, cp, out, B, H, W, C, s);
   return (int)cudaGetLastError();
 }

@@ -58,11 +58,18 @@ class Conv2d(nn.Conv2d):
 
 class Linear(nn.Linear):
     """Flax nn.Dense counterpart (lecun_normal, he_normal or zero kernel,
-    zero bias)."""
+    zero bias). As nn.Dense(dtype=d), a Linear with `dtype` casts its
+    input, weight and bias to d and computes in d; without one it computes
+    in the promoted type of its input and its f32 parameters, i.e. f32."""
 
-    def __init__(self, in_features, out_features, init="lecun_normal"):
+    def __init__(self, in_features, out_features, init="lecun_normal", dtype=None):
         super().__init__(in_features, out_features)
         self.init_kind = init
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
     def flax_init_(self, generator):
         if self.init_kind == "zeros":

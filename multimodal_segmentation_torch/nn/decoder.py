@@ -21,8 +21,8 @@ class FiLMLayer(nn.Module):
         self.dtype = dtype
         self.Conv_0 = Conv2d(8, 8, 3)
         self.Conv_1 = Conv2d(8, 8, 3)
-        self.Dense_0 = Linear(num_z, 8)
-        self.Dense_1 = Linear(num_z, 8)
+        self.Dense_0 = Linear(num_z, 8, dtype=dtype)
+        self.Dense_1 = Linear(num_z, 8, dtype=dtype)
 
     def forward(self, h, z):
         l1 = leaky_relu(self.Conv_0(h))

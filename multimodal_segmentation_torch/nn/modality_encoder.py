@@ -26,7 +26,7 @@ class ModalityEncoder(nn.Module):
             self.add_module("Conv_%d" % i, Conv2d(in_ch, f, 3, padding="VALID",
                                                  init="he_normal", stride=2))
             in_ch, h, w = f, (h - 3) // 2 + 1, (w - 3) // 2 + 1
-        self.Dense_0 = Linear(h * w * in_ch, 32, init="he_normal")
+        self.Dense_0 = Linear(h * w * in_ch, 32, init="he_normal", dtype=dtype)
         self.z_mean = Linear(32, num_z)
         self.z_log_var = Linear(32, num_z)
 
@@ -38,7 +38,7 @@ class ModalityEncoder(nn.Module):
         for i in range(4):
             x = leaky_relu(getattr(self, "Conv_%d" % i)(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        x = leaky_relu(self.Dense_0(x.to(self.dtype)))
+        x = leaky_relu(self.Dense_0(x))
         # VAE heads in f32: exp(log_var) and the KL need the range
         x = x.float()
         z_mean = self.z_mean(x)

@@ -99,7 +99,8 @@ def _finish(job, what):
     if proc.returncode != 0:
         raise RuntimeError("build failed for %s:\n%s" % (what, log))
     return {"seconds": time.perf_counter() - t0,
-            "ptxas": [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]}
+            "ptxas": [l.strip() for l in log.splitlines()
+                      if "Compiling entry" in l or "registers" in l or "spill" in l]}
 
 
 def build_all():
@@ -193,10 +194,16 @@ def tps_warp_fwd(vol, wv, cp):
     """Fused TPS flow + bilinear warp on the GPU (csrc/tps_warp.cu).
 
     Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
-    tps_bilinear_warp_pallas. Memory-bound: it reads vol and writes out
-    once (2 x 28.3 MB at B=24, 192x192, C=8 in f32), and evaluates the
-    flow per point in f32 with an accurate logf. One thread per output
-    point, corners read channels-last, f32 accumulation.
+    tps_bilinear_warp_pallas. The spline basis phi_i of a point (25
+    accurate logf in f32) is evaluated once for a chunk of 8 images and
+    each image's flow is summed from it (csrc/tps_flow.cuh); a thread
+    issues an image's corner loads (channels-last, 16 bytes a load where
+    the rows allow), sums the next image's flow while they are in flight,
+    and blends in f32. Its bytes' bound is 8.5 us on an H100 at B=12 f32
+    and B=24 bf16 (vol read and out written once, 2 x 14.2 MB, 192x192,
+    C=8); it takes 1.7-2.9 times that, bound by the ~300 instructions
+    each (point, image) issues and its loads' latency, below
+    grid_sample's time at the main path's shapes (PERF.md).
 
     Args:
       vol: (B, H, W, C) contiguous CUDA tensor, float32 or bfloat16.
@@ -313,10 +320,9 @@ def tps_flow_dbg(wv, cp, vol_shape):
 
     Replaces tools/debug_warp_kernel.py::flow_dbg, the TPU bisect of the
     fused warp's flow stage. It runs the flow code of tps_warp_fwd
-    (csrc/tps_flow.cuh) and writes, per output point, what the warp would
-    blend at. Its bound is the bytes, B x H x W x 20 written (17.7 MB at
-    B=24, 192x192); its time is the flow's arithmetic (25 accurate logf a
-    point), several times that bound.
+    (csrc/tps_flow.cuh) in tps_warp_fwd's structure and writes, per output
+    point, what the warp would blend at. Its bound is the bytes, B x H x W
+    x 20 written (17.7 MB at B=24, 192x192).
 
     Args:
       wv: (B, 28, 2) contiguous CUDA float32 spline coefficients [w; v]

@@ -66,6 +66,44 @@ def test_warp_kernel_inference_shape(cuda):
     assert (got - ref).abs().max().item() <= 2e-4
 
 
+@pytest.mark.parametrize("B", [1, 5, 13, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1, 3, 8, 16])
+def test_warp_kernel_image_and_channel_counts(cuda, B, dtype, C):
+    """Image counts that do not fill a chunk of 8 (1, 5, 13) and one that
+    does (24); C = 8 and 16 (16-byte loads: one or two a corner kept in
+    registers, or, for 64-byte f32 rows, four read in the blend), 1 and 3
+    (rows of 4, 12, 2 or 6 bytes: a channel at a time)."""
+    got, ref = _kernel_and_plain(*_inputs(cuda, B=B, H=40, W=36, C=C, scale=0.3, seed=B,
+                                          dtype=dtype))
+    assert got.dtype == dtype and got.shape == (B, 40, 36, C)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_points_outside(cuda, dtype):
+    """The training shape with offsets of +-0.04 (chip_smoke.py's "large"
+    case): some points fall fully outside and are written as zeros."""
+    got, ref = _kernel_and_plain(*_inputs(cuda, B=12, H=192, W=192, C=8, scale=0.08, seed=3,
+                                          dtype=dtype))
+    outside = (ref == 0).all(-1)
+    assert outside.any() and (got[outside] == 0).all()
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_warp_kernel_unaligned_rows(cuda):
+    """A view 4 bytes into its storage is not 16-byte aligned: the kernel
+    reads it a channel at a time, with the same result."""
+    vol, off = _inputs(cuda, B=3, H=40, W=36, C=8)
+    shifted = torch.empty(vol.numel() + 1, device=cuda)[1:].view(vol.shape)
+    shifted.copy_(vol)
+    wv, cp = tps.tps_coefficients(off), tps.control_grid((5, 5), cuda)
+    assert torch.equal(cuda_kernels.tps_warp_fwd(shifted, wv, cp),
+                       cuda_kernels.tps_warp_fwd(vol, wv, cp))
+
+
 def test_launch_counter_counts_kernel_launches(cuda):
     vol, off = _inputs(cuda)
     before = cuda_kernels.TPS_WARP_FWD.launches
@@ -133,17 +171,20 @@ def test_flow_kernel_matches_plain(cuda, B, H, W):
 
 def test_flow_kernel_and_warp_kernel_share_the_flow(cuda):
     """B1's output is a bilinear blend at B5's locations, to f32 roundoff
-    of the blend (1e-5 on inputs in [0, 1]), at the training shape: a flow
-    that differed at all would flip floor() at pixel edges and move the
-    output by the image's gradient."""
-    B, H, W, C = 12, 192, 192, 8
-    off, wv, cp = _flow_inputs(cuda, B)
-    vol = torch.from_numpy(np.random.RandomState(1).rand(B, H, W, C).astype(np.float32)).to(cuda)
-    locs = cuda_kernels.tps_flow_dbg(wv, cp, (H, W))[..., :2].contiguous()
-    warped = cuda_kernels.tps_warp_fwd(vol, wv, cp)
-    blended = bilinear_sample(vol, locs).reshape(B, H, W, C)
-    torch.cuda.synchronize()
-    assert (warped - blended).abs().max().item() <= 1e-5
+    of the blend (1e-5 on inputs in [0, 1]), at the training shape (B =
+    12) and the inference shape (B = 24): a flow that differed at all would
+    flip floor() at pixel edges and move the output by the image's
+    gradient."""
+    H, W, C = 192, 192, 8
+    for B in (12, 24):
+        off, wv, cp = _flow_inputs(cuda, B)
+        vol = torch.from_numpy(np.random.RandomState(1).rand(B, H, W, C).astype(np.float32))
+        vol = vol.to(cuda)
+        locs = cuda_kernels.tps_flow_dbg(wv, cp, (H, W))[..., :2].contiguous()
+        warped = cuda_kernels.tps_warp_fwd(vol, wv, cp)
+        blended = bilinear_sample(vol, locs).reshape(B, H, W, C)
+        torch.cuda.synchronize()
+        assert (warped - blended).abs().max().item() <= 1e-5, B
 
 
 def test_flow_wrapper_rejects_bad_inputs(cuda):
@@ -569,6 +610,34 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
                                             "tps_flow_dbg": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
+
+
+def test_full_width_bf16_train_step_runs_through_the_kernels(cuda, monkeypatch):
+    """The same step at compute_dtype bfloat16: launches 2/1/3/2, finite
+    f32 metrics; parameters, BatchNorm statistics and Adam moments stay f32
+    and finite, and the warps ran on bf16 anatomies."""
+    conf = dafnet_chaos()
+    conf.compute_dtype = "bfloat16"
+    model = build_model(conf, device="cuda")
+    with torch.no_grad():
+        model.fuser.locnet.Dense_1.weight.normal_(0.0, 1e-2)
+    ts = create_train_state(model, conf)
+    steps = DAFNetSteps(model, conf)
+    dtypes = []
+    warp = tps.tps_warp_fwd
+    monkeypatch.setattr(tps, "tps_warp_fwd", lambda vol, *a: dtypes.append(vol.dtype) or warp(vol, *a))
+    cuda_kernels.reset_launch_counts()
+    ts, metrics = steps.step_supervised(ts, _expert_batch(conf))
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
+                                            "nearest_warp": 3, "round_ste": 2,
+                                            "tps_flow_dbg": 0}
+    assert dtypes == [torch.bfloat16, torch.bfloat16]
+    assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
+    state = [*model.parameters(), *model.buffers()]
+    for opt in (ts.opt_gen, *ts.opt_disc.values()):
+        state += [t for st in opt.state.values() for t in st.values() if t.dim() > 0]
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all().item() for t in state)
 
 
 def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):

@@ -102,6 +102,94 @@ def test_film_decoder_matches_jax():
     np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5)
 
 
+def _dtypes_by_layer(jax_module, variables, torch_module, jax_args, torch_args):
+    """{layer name: output dtype name} of every submodule, for both
+    frameworks (Flax's captured intermediates, the port's forward hooks)."""
+    _, inter = jax_module.apply(variables, *jax_args, capture_intermediates=True,
+                                mutable=["intermediates"])
+    want = {}
+    for path, v in jax.tree_util.tree_leaves_with_path(inter["intermediates"]):
+        keys = [k.key for k in path if isinstance(k, jax.tree_util.DictKey)]
+        name = ".".join(keys[:keys.index("__call__")])
+        if name:
+            want[name] = str(v.dtype)
+    got = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: got.__setitem__(n, str(o.dtype).replace("torch.", "")))
+        for n, m in torch_module.named_modules() if n]
+    torch_module(*torch_args)
+    for h in hooks:
+        h.remove()
+    return got, want
+
+
+def _bf16_gap_check(got_bf16, got_f32, ref_bf16, ref_f32):
+    """Each output: JAX's dtype, within 3 times JAX's own bf16-to-f32 gap
+    of JAX's bf16 value, and not equal to the port's f32 value."""
+    for a, a32, r, r32 in zip(got_bf16, got_f32, ref_bf16, ref_f32, strict=True):
+        assert str(a.dtype).replace("torch.", "") == str(r.dtype)
+        a, r = a.detach().float().numpy(), np.asarray(r, np.float32)
+        gap = np.abs(r - np.asarray(r32, np.float32)).max()
+        assert 0 < np.abs(a - r).max() <= 3 * gap, (np.abs(a - r).max(), gap)
+        assert not np.array_equal(a, a32.detach().float().numpy())
+
+
+@pytest.mark.parametrize("seed", [1, 5, 9])
+def test_modality_encoder_bf16_matches_jax(seed):
+    """compute dtype bfloat16: every layer's output dtype is the Flax
+    layer's (Dense_0 in bf16, the VAE heads in f32), z, z_mean, z_log_var
+    and KL are f32 as in JAX, and each lies within 3 times JAX's own
+    bf16-to-f32 gap of JAX's bf16 value. That gap is 4.7e-3 to 1.8e-2 at
+    these seeds (values up to 5.4); the port's bf16 was 0.57 to 1.92 of it
+    (roundoff: the conv sums round at other places)."""
+    s, x = _anatomy(4, seed), _images((4, 32, 32, 1), seed + 1)
+    key = jax.random.PRNGKey(3)
+    eps = torch.from_numpy(jax_sample_eps(PARAMS, key, 4, (32, 32)))
+    v = {"params": PARAMS["enc_modality"]}
+    ref, got, mods = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        ref[dt] = jnn.ModalityEncoder(NZ, dtype=getattr(jnp, dt)).apply(v, s, x, rngs={"sample": key})
+        mods[dt] = _load(tnn.ModalityEncoder(9, (32, 32), NZ, getattr(torch, dt)), "enc_modality")
+        got[dt] = mods[dt](nchw(s), nchw(x), eps)
+    _bf16_gap_check(got["bfloat16"], got["float32"], ref["bfloat16"], ref["float32"])
+    got_dt, want_dt = _dtypes_by_layer(
+        jnn.ModalityEncoder(NZ, dtype=jnp.bfloat16), v, mods["bfloat16"],
+        (s, x, False, False), (nchw(s), nchw(x)))
+    assert got_dt == want_dt and want_dt["Dense_0"] == "bfloat16" and want_dt["z_mean"] == "float32"
+
+
+@pytest.mark.parametrize("seed", [7, 11, 13])
+def test_film_decoder_bf16_matches_jax(seed):
+    """compute dtype bfloat16: every layer's output dtype is the Flax
+    layer's (the FiLM convs and Denses in bf16, the 1x1 tanh conv in f32)
+    and the f32 image lies within 3 times JAX's own bf16-to-f32 gap of
+    JAX's bf16 image. That gap is 0.021 to 0.072 at these seeds (values up
+    to 1.0). The port's bf16 image was 0.056, 0.031 and 0.021 from JAX's,
+    0.78 to 1.2 times JAX's gap; at seed 7 it is 0.108 from the port's
+    f32 image against JAX's 0.072, and RMS 9.2e-3 against 7.1e-3. That is
+    bf16 roundoff through four residual layers, not an f32 island: the
+    Denses agree exactly, the first FiLM conv by one bf16 ulp (another
+    summation order), and the gap grows by about an ulp of the activations
+    a layer; computing the FiLM layers' elementwise tail in f32 (as XLA
+    may fuse it) does not bring the port closer to JAX's bf16."""
+    r = np.random.RandomState(seed)
+    s = (r.randint(0, 9, size=(3, 32, 32))[..., None] == np.arange(8)).astype(np.float32)
+    z = np.random.RandomState(seed + 1).randn(3, NZ).astype(np.float32)
+    v = {"params": PARAMS["decoder"]}
+    ref, got, mods = {}, {}, {}
+    for dt in ("float32", "bfloat16"):
+        ref[dt] = jnn.Decoder("film", (32, 32), dtype=getattr(jnp, dt)).apply(v, s, z)
+        mods[dt] = _load(tnn.Decoder("film", 8, NZ, getattr(torch, dt)), "decoder")
+        got[dt] = mods[dt](nchw(s), torch.from_numpy(z)).permute(0, 2, 3, 1)
+    _bf16_gap_check([got["bfloat16"]], [got["float32"]], [ref["bfloat16"]], [ref["float32"]])
+    got_dt, want_dt = _dtypes_by_layer(
+        jnn.Decoder("film", (32, 32), dtype=jnp.bfloat16), v, mods["bfloat16"], (s, z),
+        (nchw(s), torch.from_numpy(z)))
+    assert got_dt == want_dt
+    assert want_dt["FiLMDecoder_0.FiLMLayer_0.Dense_0"] == "bfloat16"
+    assert want_dt["FiLMDecoder_0.Conv_1"] == "float32"
+
+
 def test_spade_decoder_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tnn.Decoder("spade", 8, NZ)
