@@ -43,6 +43,16 @@ Phases, one JSON line each:
   train-bf16    the same at compute_dtype bfloat16 (f32 parameters,
                 statistics, losses and Adam moments): the same checks, and
                 its p50 over the f32 row's
+  slice-bf16    the slice at eval_dtype bfloat16 (the tester's own bf16
+                model from the same weights): the same checks, p50 per
+                fusion over the slice row's, and the share of pixels whose
+                argmax differs from the slice row's
+  lockstep      the JAX package's bf16/f32 lockstep bound: 40 tiny
+                step_supervised calls in f32 and in bf16 from the same
+                weights, batches and draws; both losses fall, the largest
+                relative divergence < 0.02, the endpoints < 0.01
+  train-spade   the train phase at full dafnet_spade_chaos width (SPADE
+                decoder), f32 and bf16, SPADE_STEPS timed steps
   train-cross-device
                 one step_supervised at the tiny config on the card and on
                 the CPU, same weights, batch and noise: relative difference
@@ -55,17 +65,23 @@ Phases, one JSON line each:
                 checkpoint save, of the component export and of the image
                 callback; checkpoint bytes, kernel launches, validation
                 logs, test Dice, peak memory, artifacts, the SWA check
+  chaos         the dress rehearsal (multimodal_segmentation_torch.tools.
+                dress_rehearsal) at full dafnet_chaos width: a 20-volume
+                CHAOS DICOM tree at the archive's profile, cold and warm
+                ingest through the native reader and the ChaosLoader, then
+                the CLI (one epoch of CHAOS_STEPS batches at l_mix 0.5, no
+                --dataset) and `--test`: ingest seconds, slices per split,
+                the epoch's parts, launches, Dice per fusion type
 
 Then nvidia-smi's name/power line, the kernels summary and, last, the result
 line. Any failed check raises, and the script exits non-zero without a
 result line; so it does without a CUDA device, or outside the repository.
 
   python3 chip_smoke.py                  # needs one CUDA device
-  python3 chip_smoke.py --cpu-rehearsal  # slice, cross-device, train (f32
-                                         # and bf16), train-cross-device,
-                                         # debug-warp and experiment at the
-                                         # tiny config on the CPU with the
-                                         # plain versions; no result line
+  python3 chip_smoke.py --cpu-rehearsal  # every phase but env, build and
+                                         # kernels at the tiny config on the
+                                         # CPU with the plain versions; no
+                                         # result line
   python3 chip_smoke.py --profile-train  # only a torch.profiler window over
                                          # full-width train steps on the card:
                                          # device time by kernel and by kind,
@@ -101,9 +117,17 @@ DENSE1_STD = 1e-2
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 12
 # experiment phase: steps an epoch, epochs before and after the resume
-EXP_STEPS = 12
+EXP_STEPS = 4
 EXP_EPOCHS = 3
 EXP_RESUME_EPOCHS = 4
+# train-spade phase: timed steps (after TRAIN_WARMUP)
+SPADE_STEPS = 6
+# lockstep phase: step_supervised calls in each dtype (the JAX test's 40)
+LOCKSTEP_STEPS = 40
+# chaos phase: the fabricated tree (MMSEG_TPU_CHAOS_DIR) and the batches an
+# epoch of its one epoch
+CHAOS_ROOT = os.path.join(OUT_DIR, "chaos", "MR")
+CHAOS_STEPS = 4
 
 
 def emit(phase, **fields):
@@ -801,7 +825,14 @@ def _mean_dice(folder):
     return sum(float(r[1]) for r in rows) / len(rows), len(rows)
 
 
-def slice_phase(torch, conf, device):
+def slice_phase(torch, conf, device, reference=None):
+    """ModelTester.test_modality('t2') with its predict_mask calls timed.
+    Under conf.eval_dtype the tester predicts with its own model at that
+    dtype, built from the same weights. Returns (model, warm volume,
+    result, the argmax of every predict_mask call, in call order);
+    `reference`, the f32 row's (argmaxes, p50 ms per volume), adds the
+    share of pixels whose argmax differs from it (over the padded volumes
+    predict_mask sees) and each p50 over the f32 row's."""
     from multimodal_segmentation_torch.data import init_loader
     from multimodal_segmentation_torch.eval import ModelTester
     from multimodal_segmentation_torch.models import build_model
@@ -811,6 +842,7 @@ def slice_phase(torch, conf, device):
     model = build_model(conf, device=device)
     _seed_weights(torch, model, conf.seed)
     tester = ModelTester(model, conf, device=device)
+    model = tester.model
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
     # warm-up volume (cuDNN plans, the kernel's first launch), not counted
@@ -823,7 +855,7 @@ def slice_phase(torch, conf, device):
         model.predict_mask(1, ftype, warm, device=device)
     sync()
 
-    times = {}
+    times, argmaxes = {}, []
     predict = model.predict_mask
 
     def timed(modality_index, fusion_type, images, device):
@@ -834,8 +866,10 @@ def slice_phase(torch, conf, device):
         times.setdefault(fusion_type, []).append(time.perf_counter() - t0)
         check(out.shape == (images[0].shape[0],) + tuple(conf.input_hw) + (conf.num_masks + 1,),
               "predict_mask shape %s" % (tuple(out.shape),))
+        check(out.dtype == torch.float32, "predict_mask dtype %s" % out.dtype)
         check(bool(torch.isfinite(out).all()), "non-finite masks")
         check((out.sum(-1) - 1).abs().max().item() < 1e-4, "masks do not sum to 1")
+        argmaxes.append(out.argmax(-1).to(torch.uint8).cpu())
         return out
 
     model.predict_mask = timed
@@ -873,6 +907,8 @@ def slice_phase(torch, conf, device):
     out = {
         "config": "dafnet_chaos" if conf.input_hw == (192, 192) else "tiny",
         "device": str(device),
+        "compute_dtype": str(next(iter(model.enc_anatomy.parameters())).dtype) + " weights, "
+                         + str(model.enc_anatomy.dtype) + " activations",
         "volumes": data.volumes(),
         "slices": [int(data.get_volume_images_modi(0, v).shape[0]) for v in data.volumes()],
         "mean_dice": dice,
@@ -885,9 +921,16 @@ def slice_phase(torch, conf, device):
         "offsets_abs_max": float(theta.max()),
         "warp_changed_anatomy": float((s1_def - s1).abs().max()),
     }
+    if reference is not None:
+        ref_argmaxes, ref_p50 = reference
+        check(len(ref_argmaxes) == len(argmaxes), "%d predict_mask calls, the f32 row made %d"
+              % (len(argmaxes), len(ref_argmaxes)))
+        differ = sum(int((a != b).sum()) for a, b in zip(argmaxes, ref_argmaxes))
+        out["argmax_differ_share_vs_f32"] = differ / sum(a.numel() for a in argmaxes)
+        out["p50_over_f32"] = {k: p50[k] / v for k, v in ref_p50.items()}
     if on_card:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    return model, warm, out
+    return model, warm, out, argmaxes
 
 
 def cross_device_phase(torch, conf, model, warm, device):
@@ -966,7 +1009,7 @@ def train_phase(torch, conf, device, warmup, steps):
     ms = sorted(1e3 * t for t in times)
     p50 = ms[len(ms) // 2]
     out = {
-        "config": "dafnet_chaos" if conf.input_hw == (192, 192) else "tiny",
+        "config": conf.folder,
         "device": str(device),
         "batch": conf.batch_size,
         "input": list(conf.input_shape),
@@ -1031,6 +1074,130 @@ def train_cross_device_phase(torch, device):
             "max_rel_diff_generator": max(v for k, v in rel.items() if not k.startswith("dis_")),
             "max_rel_diff_discriminators": max(v for k, v in rel.items() if k.startswith("dis_")),
             "metrics": out, "min_anatomy_distance_from_half": min(seen)}
+
+
+def lockstep_phase(torch, device):
+    """The JAX package's bf16/f32 lockstep bound
+    (tests/test_mixed_precision.py:61-114), step for step: the tiny DAFNet
+    config, the same 8 batches from np.random.RandomState(0), LOCKSTEP_STEPS
+    step_supervised calls in f32 and then in bf16 from the same seeded
+    weights and the same draws (the train state's generator, seeded alike).
+    Both losses fall from the first step to the last, the largest relative
+    divergence of the bf16 loss from the f32 one stays below 0.02, and the
+    endpoints differ by less than 0.01 relative."""
+    import numpy as np
+
+    from multimodal_segmentation_torch import config
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.train import DAFNetSteps, create_train_state
+
+    def run(dtype):
+        conf = config.tiny_test_config("dafnet")
+        conf.compute_dtype = dtype
+        model = build_model(conf, device=device)
+        ts, steps_fn = create_train_state(model, conf), DAFNetSteps(model, conf).step_supervised
+        r = np.random.RandomState(0)
+        B, (H, W), nm = conf.batch_size, conf.input_hw, conf.num_masks
+        batches = [{k: (r.rand(B, H, W, c) * (2 if "x" in k else 1) - (1 if "x" in k else 0))
+                    .astype(np.float32)
+                    for k, c in [("x1", 1), ("x2", 1), ("m1", nm), ("m2", nm),
+                                 ("dm1", nm), ("dm2", nm), ("dx1", 1), ("dx2", 1)]}
+                   for _ in range(8)]
+        out = []
+        for i in range(LOCKSTEP_STEPS):
+            ts, m = steps_fn(ts, batches[i % 8])
+            out.append(float(m["loss"]))
+        return np.asarray(out)
+
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    lf, lb = run("float32"), run("bfloat16")
+    seconds = time.perf_counter() - t0
+    launches = cuda_kernels.launch_counts()
+    rel = np.abs(lf - lb) / np.maximum(np.abs(lf), 1e-6)
+    end = abs(lf[-1] - lb[-1]) / abs(lf[-1])
+    check(np.isfinite(lf).all() and np.isfinite(lb).all(), "non-finite lockstep loss")
+    check(lf[-1] < lf[0] and lb[-1] < lb[0], "a lockstep run did not train: f32 %.4f -> %.4f, "
+          "bf16 %.4f -> %.4f" % (lf[0], lf[-1], lb[0], lb[-1]))
+    check(rel.max() < 0.02, "bf16 loss diverged from f32 by %.4f (>= 0.02)" % rel.max())
+    check(end < 0.01, "lockstep endpoints differ by %.4f (>= 0.01)" % end)
+    if device == "cuda":
+        n = 2 * LOCKSTEP_STEPS
+        want = {"tps_warp_fwd": 2 * n, "tps_warp_bwd": n, "nearest_warp": 3 * n,
+                "round_ste": 2 * n, "tps_flow_dbg": 0}
+        check(launches == want, "lockstep launches %s != %s" % (launches, want))
+    return {"config": "tiny", "device": str(device), "steps": LOCKSTEP_STEPS, "seconds": seconds,
+            "max_rel_divergence": float(rel.max()), "mean_rel_divergence": float(rel.mean()),
+            "endpoint_rel_diff": float(end), "loss_f32": lf.tolist(), "loss_bf16": lb.tolist(),
+            "launches": launches}
+
+
+def chaos_phase(torch, device, tiny=False):
+    """The dress rehearsal (tools/dress_rehearsal.py) at full dafnet_chaos
+    width: the 20-volume CHAOS tree fabricated at the archive's profile
+    under chip_smoke_out/chaos/MR (MMSEG_TPU_CHAOS_DIR, set by main before
+    the port's data modules load), the alignment table, the cold and the
+    warm ingest, then the CLI with `--config dafnet_config_chaos --split 0
+    --l_mix 0.5 --epochs 1` and no --dataset, capped at CHAOS_STEPS
+    batches an epoch, with validation, checkpoint, export and test, then
+    `--test`. Holds: every fabricated DICOM read once by the native reader,
+    the loaders ChaosLoaders, and on the card the kernel launches of the
+    run (2/1/3/2 a step, one round_ste a predict_mask, one tps_warp_fwd a
+    def/max predict_mask)."""
+    import contextlib
+    import io
+
+    from multimodal_segmentation_torch.data.chaos import ChaosLoader
+    from multimodal_segmentation_torch.models.dafnet import DAFNet
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.tools import dress_rehearsal
+
+    calls = {"predict": 0, "warped": 0}
+    predict = DAFNet.predict_mask
+
+    def counted(self, modality_index, fusion_type, images, device="cuda"):
+        calls["predict"] += 1
+        calls["warped"] += fusion_type in ("def", "max")
+        return predict(self, modality_index, fusion_type, images, device=device)
+
+    argv = ["--root", CHAOS_ROOT, "--epochs", "1", "--l_mix", "0.5", "--steps-per-epoch",
+            str(CHAOS_STEPS), "--device", device] + (["--tiny"] if tiny else [])
+    DAFNet.predict_mask = counted
+    try:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = dress_rehearsal.main(argv)
+        launches = cuda_kernels.launch_counts()
+    finally:
+        DAFNet.predict_mask = predict
+    run = res.pop("run")
+    files = sum(sum(c) for c in dress_rehearsal.RAW_COUNTS.values())
+    check(res["dicom_files"] == res["native_reads_cold"] == files,
+          "DICOM files %d, native reads %d, expected %d"
+          % (res["dicom_files"], res["native_reads_cold"], files))
+    check(run["loader"] == ChaosLoader.__name__, "the CLI trained on %s" % run["loader"])
+    steps = run["steps"]
+    check(steps == 2 * CHAOS_STEPS, "steps %d != %d" % (steps, 2 * CHAOS_STEPS))
+    image_epochs = sum("images" in v for v in run["epoch_seconds"].values())
+    if device == "cuda":
+        want = {"tps_warp_fwd": 2 * steps + calls["warped"], "tps_warp_bwd": steps,
+                "nearest_warp": 3 * steps,
+                "round_ste": 2 * steps + calls["predict"] + image_epochs, "tps_flow_dbg": 0}
+        check(launches == want, "chaos launches %s != %s" % (launches, want))
+    check(all(0.0 <= d <= 1.0 for d in run["dice"].values()), "Dice %s" % run["dice"])
+    out = {"config": "dafnet_chaos" if not tiny else "tiny", "device": str(device), **res,
+           "cuts": {"epochs": 1, "batches_per_epoch": run["batches_per_epoch"],
+                    "steps_per_epoch_cap": CHAOS_STEPS},
+           **{k: run[k] for k in ("flags", "steps", "run_s", "test_s", "dice",
+                                  "training_csv_last")},
+           "epoch_seconds": {str(e): v for e, v in run["epoch_seconds"].items()},
+           "predict_mask_calls": calls, "launches": launches}
+    if device == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
 
 
 def experiment_phase(torch, device, preset):
@@ -1255,8 +1422,8 @@ def train_profile_phase(torch, conf, device, warmup=2, steps=3):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="slice, cross-device, train, debug-warp and experiment "
-                         "at the tiny config on the CPU; no result line")
+                    help="every phase but env, build and kernels at the tiny "
+                         "config on the CPU; no result line")
     ap.add_argument("--profile-train", action="store_true",
                     help="only profile full-width train steps on the card; "
                          "no result line")
@@ -1265,6 +1432,9 @@ def main(argv=None):
         sys.exit("chip_smoke.py: the multimodal_segmentation_torch package is "
                  "not in %s; run it from the repository" % REPO)
     sys.path.insert(0, REPO)
+    # the chaos phase's tree; the CHAOS loader reads this when its module
+    # first loads (every other phase names the synthetic loader)
+    os.environ["MMSEG_TPU_CHAOS_DIR"] = CHAOS_ROOT
     import torch
 
     from multimodal_segmentation_torch import config
@@ -1272,17 +1442,26 @@ def main(argv=None):
     if args.cpu_rehearsal:
         conf = config.tiny_test_config()
         conf.test_dataset, conf.folder = "synthetic", os.path.join(OUT_DIR, "rehearsal")
-        model, warm, res = slice_phase(torch, conf, "cpu")
+        model, warm, res, argmaxes = slice_phase(torch, conf, "cpu")
         emit("slice", **res)
         emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cpu"))
+        conf.eval_dtype, conf.folder = "bfloat16", os.path.join(OUT_DIR, "rehearsal_bf16")
+        emit("slice-bf16", **slice_phase(torch, conf, "cpu",
+                                         (argmaxes, res["p50_ms_per_volume"]))[2])
         emit("train", **train_phase(torch, config.tiny_test_config(), "cpu", 1, 2))
         bf16 = config.tiny_test_config()
         bf16.compute_dtype = "bfloat16"
         emit("train-bf16", **train_phase(torch, bf16, "cpu", 1, 2))
+        emit("lockstep", **lockstep_phase(torch, "cpu"))
+        for dtype in ("float32", "bfloat16"):
+            spade = config.tiny_test_config("dafnet", "spade")
+            spade.compute_dtype = dtype
+            emit("train-spade", **train_phase(torch, spade, "cpu", 1, 2))
         emit("train-cross-device", **train_cross_device_phase(torch, "cpu"))
         emit("debug-warp", **debug_warp_phase(torch, "cpu"))
         config.PRESETS.setdefault("tiny", config.tiny_test_config)
         emit("experiment", **experiment_phase(torch, "cpu", "tiny"))
+        emit("chaos", **chaos_phase(torch, "cpu", tiny=True))
         return 0
 
     if not torch.cuda.is_available():
@@ -1332,10 +1511,14 @@ def main(argv=None):
 
     conf = config.dafnet_chaos()
     conf.test_dataset, conf.folder = "synthetic", os.path.join(OUT_DIR, "dafnet_chaos")
-    model, warm, res = slice_phase(torch, conf, "cuda")
+    model, warm, res, argmaxes = slice_phase(torch, conf, "cuda")
     emit("slice", card=smi, **res)
     emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cuda"))
     del model, warm
+    conf.eval_dtype, conf.folder = "bfloat16", os.path.join(OUT_DIR, "dafnet_chaos_bf16")
+    res_bf16 = slice_phase(torch, conf, "cuda", (argmaxes, res["p50_ms_per_volume"]))[2]
+    emit("slice-bf16", card=smi, **res_bf16)
+    del argmaxes
 
     conf = config.dafnet_chaos()
     conf.dataset_name = "synthetic"
@@ -1345,15 +1528,29 @@ def main(argv=None):
     train_bf16 = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
     train_bf16["p50_over_f32"] = train_bf16["p50_ms_per_step"] / train["p50_ms_per_step"]
     emit("train-bf16", card=smi, **train_bf16)
+    lockstep = lockstep_phase(torch, "cuda")
+    emit("lockstep", card=smi, **lockstep)
+    spade = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = config.dafnet_spade_chaos()
+        conf.dataset_name, conf.compute_dtype = "synthetic", dtype
+        spade[dtype] = train_phase(torch, conf, "cuda", TRAIN_WARMUP, SPADE_STEPS)
+        emit("train-spade", card=smi, **spade[dtype])
     emit("train-cross-device", **train_cross_device_phase(torch, "cuda"))
     exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
     emit("experiment", card=smi, **exp)
+    torch.cuda.empty_cache()
+    chaos = chaos_phase(torch, "cuda")
+    emit("chaos", card=smi, **chaos)
 
-    # launches: the slice's (inference), the train phases' (f32 and bf16),
-    # the experiment phase's and the warp-bisect tool's
-    paths = {"slice": res["launches"], "train": train["launches"],
-             "train-bf16": train_bf16["launches"], "experiment": exp["launches"],
-             "debug-warp": bisect["launches"]}
+    # launches of every path: inference (slice, slice-bf16), the train
+    # phases, the lockstep runs, the experiment, the dress rehearsal and
+    # the warp-bisect tool
+    paths = {"slice": res["launches"], "slice-bf16": res_bf16["launches"],
+             "train": train["launches"], "train-bf16": train_bf16["launches"],
+             "lockstep": lockstep["launches"], "train-spade": spade["float32"]["launches"],
+             "train-spade-bf16": spade["bfloat16"]["launches"], "experiment": exp["launches"],
+             "chaos": chaos["launches"], "debug-warp": bisect["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"

@@ -5,9 +5,16 @@ Implement a Loader subclass and register it in loader_factory to add a
 dataset.
 """
 
+import os
 from abc import ABC, abstractmethod
 
 import numpy as np
+
+# reference loaders/base_loader.py:5-7; the variable and default of the
+# JAX package's data/base_loader.py, so one setting serves both packages
+DATA_CONF = {
+    "chaos": os.environ.get("MMSEG_TPU_CHAOS_DIR", "../../data/Chaos/MR"),
+}
 
 
 class Loader(ABC):

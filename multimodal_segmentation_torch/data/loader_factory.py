@@ -1,18 +1,37 @@
 """Loader registry (reference loaders/loader_factory.py:4-10).
 
-The port carries the synthetic CHAOS-shaped fixture only. The CHAOS DICOM
-and cardiac loaders are still to be ported (ROADMAP.md, queue A).
+Port of multimodal_segmentation_tpu/data/loader_factory.py. 'chaos'
+resolves to the real DICOM loader when its data folder exists (DATA_CONF,
+MMSEG_TPU_CHAOS_DIR), otherwise to the synthetic CHAOS-shaped fixture with
+the JAX package's warning. The cardiac loader is still to be ported
+(ROADMAP.md, queue A, item 10).
 """
+
+import logging
+
+log = logging.getLogger("loader_factory")
 
 
 def init_loader(name, **kwargs):
+    if name == "chaos":
+        from multimodal_segmentation_torch.data.chaos import ChaosLoader
+
+        loader = ChaosLoader(**kwargs)
+        if loader.available():
+            return loader
+        log.warning(
+            "CHAOS data folder unavailable (%s); using synthetic fixture",
+            loader.data_folder,
+        )
+        from multimodal_segmentation_torch.data.synthetic import SyntheticChaosLoader
+
+        return SyntheticChaosLoader()
     if name == "synthetic":
         from multimodal_segmentation_torch.data.synthetic import SyntheticChaosLoader
 
         return SyntheticChaosLoader(**kwargs)
-    if name in ("chaos", "cardiac"):
+    if name == "cardiac":
         raise NotImplementedError(
-            "the '%s' loader is not ported yet (ROADMAP.md, queue A); "
-            "use the 'synthetic' loader" % name
+            "the 'cardiac' loader is not ported yet (ROADMAP.md, queue A, item 10)"
         )
     raise ValueError("Unknown loader: %s" % name)

@@ -5,9 +5,11 @@ type {simple, def, max} x {expert-paired, randomised pairs}, per-volume
 binarised Dice (overall and per organ) written to results.csv, and PNG
 sample grids per volume (when PIL is installed). Volumes are zero-padded to
 the split's longest, as in the JAX package, and the padding is stripped
-before the Dice.
+before the Dice. `conf.eval_dtype` (e.g. 'bfloat16') runs inference at
+that activation dtype; `conf.eval_warp` still decides the warp's blend.
 """
 
+import dataclasses
 import logging
 import os
 
@@ -15,7 +17,7 @@ import numpy as np
 
 from multimodal_segmentation_torch import losses
 from multimodal_segmentation_torch.data.loader_factory import init_loader
-from multimodal_segmentation_torch.models import full_f32_matmuls
+from multimodal_segmentation_torch.models import build_model, full_f32_matmuls
 from multimodal_segmentation_torch.models.dafnet import resolve_device
 from multimodal_segmentation_torch.utils.observability import save_image_grid
 
@@ -24,15 +26,19 @@ log = logging.getLogger("model_tester")
 
 class ModelTester:
     def __init__(self, model, conf, device="cuda"):
-        if conf.eval_dtype and conf.eval_dtype != conf.compute_dtype:
-            raise NotImplementedError(
-                "eval_dtype is not ported yet (ROADMAP.md, queue A)"
-            )
         self.conf = conf
-        self.model = model
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             full_f32_matmuls()
+        # eval_dtype: the predict model rebuilt at that activation dtype,
+        # holding the same f32 parameters and statistics (each module casts
+        # them to its compute dtype), as the JAX package's tester does
+        if conf.eval_dtype and conf.eval_dtype != conf.compute_dtype:
+            eval_model = build_model(dataclasses.replace(conf, compute_dtype=conf.eval_dtype),
+                                     device=self.device)
+            eval_model.load_state_dict(model.state_dict())
+            model = eval_model
+        self.model = model
 
     def run(self):
         for modi, mod in enumerate(self.model.modalities):

@@ -115,9 +115,12 @@ def save_config(conf):
 class Experiment:
     """reference experiment.py:80-98."""
 
-    def run(self, argv=None):
+    def run(self, argv=None, **overrides):
+        """Run the CLI on `argv` (default sys.argv). `overrides` set
+        configuration fields after the flags, for a caller that caps a run
+        (e.g. steps_per_epoch=4)."""
         args = read_console_parameters(argv)
-        conf = build_config(args)
+        conf = dataclasses.replace(build_config(args), **overrides)
         if conf.model == "cardiac3d":
             raise NotImplementedError(
                 "the volumetric cardiac3d path is not ported yet (ROADMAP.md, queue A, item 10)")

@@ -1,5 +1,5 @@
 """DAFNet: dual anatomy encoder, TPS fuser, VAE modality encoder,
-segmentor, FiLM decoder, balancer and the three spectral-norm
+segmentor, FiLM or SPADE decoder, balancer and the three spectral-norm
 discriminators; the expert-pairing training losses and the `predict_mask`
 fusion API.
 
@@ -88,7 +88,7 @@ class DAFNet(nn.Module):
         )
         self.enc_modality = ModalityEncoder(sc + in_ch, conf.input_hw, conf.num_z, dtype)
         self.segmentor = Segmentor(sc, conf.num_masks, dtype=dtype)
-        self.decoder = Decoder(conf.decoder_type, sc, conf.num_z, dtype)
+        self.decoder = Decoder(conf.decoder_type, sc, conf.num_z, dtype, conf.input_hw)
         self.balancer = Balancer(conf.n_pairs)
         dm, di = conf.d_mask_params, conf.d_image_params
         self.d_mask = Discriminator(conf.num_masks, conf.input_hw, dm.filters,
@@ -136,7 +136,7 @@ class DAFNet(nn.Module):
         # all four segmentations in one call, per-map BatchNorm statistics
         m = _nhwc(self.segmentor(cat([s1, s2, s2_def, s1_def]), groups=4))
         m1, m2, m1_s2_def, m2_s1_def = split(m, 4)
-        # all six decodes in one call (FiLM is per-sample)
+        # all six decodes in one call (FiLM and SPADE are per-sample)
         y = self.decoder(cat([s1, s2, s2_def, s1_def, s1, s2]),
                          cat([z1, z2, z1, z2, z1_in, z2_in]))
         y1, y2, y1_s2_def, y2_s1_def, y1_zin, y2_zin = split(y, 6)

@@ -2,8 +2,15 @@
 
 from multimodal_segmentation_torch.nn.anatomy_encoder import AnatomyEncoder, DualAnatomyEncoder
 from multimodal_segmentation_torch.nn.balancer import Balancer
-from multimodal_segmentation_torch.nn.blocks import BatchNorm, ConvBlock, UpsampleBlock
-from multimodal_segmentation_torch.nn.decoder import Decoder, FiLMDecoder, FiLMLayer
+from multimodal_segmentation_torch.nn.blocks import BatchNorm, ConvBlock, InstanceNorm, UpsampleBlock
+from multimodal_segmentation_torch.nn.decoder import (
+    Decoder,
+    FiLMDecoder,
+    FiLMLayer,
+    SPADEBlock,
+    SPADEDecoder,
+    SPADEUnit,
+)
 from multimodal_segmentation_torch.nn.discriminator import Discriminator, SpectralConv
 from multimodal_segmentation_torch.nn.fuser import AnatomyFuser, LocNet
 from multimodal_segmentation_torch.nn.modality_encoder import ModalityEncoder
@@ -21,8 +28,12 @@ __all__ = [
     "DualAnatomyEncoder",
     "FiLMDecoder",
     "FiLMLayer",
+    "InstanceNorm",
     "LocNet",
     "ModalityEncoder",
+    "SPADEBlock",
+    "SPADEDecoder",
+    "SPADEUnit",
     "Segmentor",
     "SpectralConv",
     "UNetBottleneck",

@@ -36,23 +36,26 @@ def _fan(init_kind, fan_in, fan_out):
 class Conv2d(nn.Conv2d):
     """Flax nn.Conv counterpart: 'SAME' (odd kernels, stride 1: symmetric
     pad k//2) or 'VALID' padding, he_normal, lecun_normal or glorot_normal
-    kernels, zero bias."""
+    kernels, zero bias (or none, as use_bias=False)."""
 
-    def __init__(self, in_ch, out_ch, k, padding="SAME", init="lecun_normal", stride=1):
+    def __init__(self, in_ch, out_ch, k, padding="SAME", init="lecun_normal", stride=1,
+                 bias=True):
         if padding == "SAME" and stride != 1:
             raise ValueError("SAME padding is ported for stride 1 only")
         super().__init__(in_ch, out_ch, k, stride=stride,
-                         padding=k // 2 if padding == "SAME" else 0)
+                         padding=k // 2 if padding == "SAME" else 0, bias=bias)
         self.init_kind = init
 
     def flax_init_(self, generator):
         kk = self.kernel_size[0] * self.kernel_size[1]
         scale, fan = _fan(self.init_kind, self.in_channels * kk, self.out_channels * kk)
         _variance_scaling_(self.weight, scale, fan, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
 
@@ -142,14 +145,49 @@ class BatchNorm(nn.Module):
         return y.reshape(x.shape)
 
 
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over H and W (nn/blocks.py:
+    135-165; keras_contrib InstanceNormalization). Mean and biased variance
+    in f32, epsilon 1e-3; the output in the input's dtype, in the JAX
+    package's order ((x - mean) * rsqrt(var + eps), then scale, then bias).
+    `groups` is accepted for the Norm interface and ignored: the statistics
+    are per sample."""
+
+    def __init__(self, channels, eps=1e-3, use_scale=True, use_bias=True):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
+
+    def forward(self, x, groups=1):
+        dt = x.dtype
+        xf = x.float()
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+        y = (x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
+        if self.weight is not None:
+            y = y * self.weight.to(dt).view(1, -1, 1, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y
+
+
+class _NoNorm(nn.Module):
+    """normalise='none': the input as it is."""
+
+    def forward(self, x, groups=1):
+        return x
+
+
 def _norm(kind, channels):
-    """Normalisation by name (utils/model_utils.py:6-13); every preset uses
-    'batch'."""
+    """Normalisation by name (utils/model_utils.py:6-13; nn/blocks.py:
+    169-190): 'batch', 'instance' or anything else for none. Every preset
+    uses 'batch'."""
     if kind == "batch":
         return BatchNorm(channels)
-    raise NotImplementedError(
-        "normalisation '%s' is not ported yet (ROADMAP.md, queue A)" % kind
-    )
+    if kind == "instance":
+        return InstanceNorm(channels)
+    return _NoNorm()
 
 
 def leaky_relu(x, alpha=0.3):

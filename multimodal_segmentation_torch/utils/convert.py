@@ -7,9 +7,12 @@ which carry the Flax auto-names:
 
   down1/ConvBlock_0/Conv_0/kernel            -> down1.ConvBlock_0.Conv_0.weight
   down1/ConvBlock_0/Norm_0/BatchNorm_0/scale -> down1.ConvBlock_0.Norm_0.weight
+  (Norm_0/InstanceNorm_0/scale, normalise='instance', likewise)
   .../Norm_0/BatchNorm_0/mean (batch_stats)  -> ....Norm_0.running_mean
   decoder/FiLMDecoder_0/FiLMLayer_0/Dense_1/kernel
                                              -> FiLMDecoder_0.FiLMLayer_0.Dense_1.weight
+  decoder/SPADEDecoder_0/SPADEBlock_5/SPADEUnit_2/Conv_1/kernel
+                                             -> SPADEDecoder_0.SPADEBlock_5.SPADEUnit_2.Conv_1.weight
   d_mask/SpectralConv_0/kernel               -> SpectralConv_0.weight
   d_mask/SpectralConv_0/u (spectral)         -> SpectralConv_0.u
 
@@ -56,11 +59,14 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+_NORM_CHILDREN = ("BatchNorm_0", "InstanceNorm_0")
+
+
 def _torch_key(path):
-    # the JAX Norm wrapper holds its BatchNorm as Norm_k/BatchNorm_0; the
-    # port's Norm_k is the BatchNorm itself
+    # the JAX Norm wrapper holds its BatchNorm (or InstanceNorm) as
+    # Norm_k/BatchNorm_0; the port's Norm_k is the normalisation itself
     mods = [p for i, p in enumerate(path[:-1])
-            if not (p == "BatchNorm_0" and i > 0 and path[i - 1].startswith("Norm_"))]
+            if not (p in _NORM_CHILDREN and i > 0 and path[i - 1].startswith("Norm_"))]
     return ".".join(mods + [_LEAF[path[-1]]])
 
 
@@ -84,7 +90,9 @@ def component_state_dict(params, batch_stats=None, spectral=None):
 def component_trees(state_dict):
     """Inverse of component_state_dict: {collection: nested dict of numpy
     arrays} ('params', and 'batch_stats' / 'spectral' where the component
-    has them), in the JAX package's layout."""
+    has them), in the JAX package's layout. A parameter name does not say
+    which normalisation a Norm_k is, so its scale and bias go under
+    Norm_k/BatchNorm_0, as every preset has them (normalise='batch')."""
     out = {}
     for key, t in state_dict.items():
         *mods, leaf = key.split(".")

@@ -71,11 +71,32 @@ def test_randomise_pairs_bit_equal():
         )
 
 
-def test_loader_factory():
+def test_loader_factory(tmp_path, caplog, monkeypatch):
+    """'synthetic' and 'chaos' resolve as in the JAX package: a ChaosLoader
+    when its folder exists, else the synthetic fixture with the JAX
+    package's warning (the same text from both). 'cardiac' is not ported."""
+    from multimodal_segmentation_tpu.data.loader_factory import init_loader as jinit
+    from multimodal_segmentation_torch.data import base_loader
+    from multimodal_segmentation_torch.data.chaos import ChaosLoader
+
     assert isinstance(init_loader("synthetic"), TLoader)
-    for name in ("chaos", "cardiac"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_loader(name)
+    tree = tmp_path / "MR"
+    tree.mkdir()
+    loader = init_loader("chaos", data_folder=str(tree))
+    assert type(loader) is ChaosLoader and loader.data_folder == str(tree)
+    monkeypatch.setitem(base_loader.DATA_CONF, "chaos", str(tree))
+    assert type(init_loader("chaos")) is ChaosLoader
+    missing = str(tmp_path / "missing")
+    warnings = []
+    for init, cls in ((jinit, JLoader), (init_loader, TLoader)):
+        caplog.clear()
+        with caplog.at_level("WARNING", logger="loader_factory"):
+            assert type(init("chaos", data_folder=missing)) is cls
+        warnings.append([r.getMessage() for r in caplog.records])
+    assert warnings[0] == warnings[1] == [
+        "CHAOS data folder unavailable (%s); using synthetic fixture" % missing]
+    with pytest.raises(NotImplementedError, match="item 10"):
+        init_loader("cardiac")
     with pytest.raises(ValueError):
         init_loader("nope")
 

@@ -132,3 +132,63 @@ def test_entry_points_refuse_to_fall_back_to_cpu():
     x = np.zeros((1, 32, 32, 1), np.float32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TMODEL.predict_mask(1, "max", [x, x])
+
+
+def _bf16_eval_confs():
+    jconf, tconf = jconfig.tiny_test_config(), tconfig.tiny_test_config()
+    jconf.eval_dtype = tconf.eval_dtype = "bfloat16"
+    return jconf, tconf
+
+
+@pytest.mark.parametrize("fusion", ["simple", "def", "max"])
+def test_eval_dtype_bf16_predict_mask_matches_jax(fusion):
+    """eval_dtype='bfloat16': the tester rebuilds the predict model at bf16
+    activations with the same f32 weights and statistics, as the JAX
+    tester does, and leaves the caller's model as it was. Its masks lie
+    within 3 times JAX's own bf16-to-f32 gap (largest difference over the
+    masks) of the JAX tester's bf16 masks."""
+    jconf, tconf = _bf16_eval_confs()
+    jt = jtester.ModelTester(JMODEL, jconf, PARAMS, STATE)
+    tt = ttester.ModelTester(TMODEL, tconf, device="cpu")
+    assert tt.model is not TMODEL and tt.model.enc_anatomy.dtype == torch.bfloat16
+    assert TMODEL.enc_anatomy.dtype == torch.float32
+    for k, v in TMODEL.state_dict().items():
+        assert torch.equal(tt.model.state_dict()[k], v), k
+    r = np.random.RandomState(31)
+    images = [r.rand(3, 32, 32, 1).astype(np.float32) * 2 - 1 for _ in range(2)]
+    ref = np.asarray(jt._predict(PARAMS, STATE, 1, fusion, images))
+    ref32 = np.asarray(JMODEL.predict_mask(PARAMS, STATE, 1, fusion, images))
+    got = tt.model.predict_mask(1, fusion, images, device="cpu").numpy()
+    assert got.dtype == ref.dtype == np.float32
+    gap = np.abs(ref - ref32).max()
+    print("port bf16 - JAX bf16 %.3g, JAX bf16 - JAX f32 %.3g" % (np.abs(got - ref).max(), gap))
+    assert 0 < np.abs(got - ref).max() <= 3 * gap
+
+
+def test_eval_dtype_bf16_model_tester_dice_matches_jax(tmp_path, monkeypatch):
+    """The tester's per-volume Dice at eval_dtype='bfloat16' against the JAX
+    tester's at the same setting: within 1e-3, or within 3 times JAX's own
+    bf16-vs-f32 Dice gap where that is larger; the bound used for each
+    folder is the assertion's message."""
+    jconf, tconf = _bf16_eval_confs()
+    j32 = jconfig.tiny_test_config()
+    for c, name in ((jconf, "jax"), (tconf, "torch"), (j32, "jax_f32")):
+        c.folder, c.test_dataset = str(tmp_path / name), "synthetic"
+    monkeypatch.setattr(jtester, "init_loader", lambda name: _JTwo())
+    monkeypatch.setattr(ttester, "init_loader", lambda name: _TTwo())
+    monkeypatch.setattr(jtester.ModelTester, "_plot", lambda *a, **k: None)
+    monkeypatch.setattr(ttester.ModelTester, "_plot", lambda *a, **k: None)
+
+    jtester.ModelTester(JMODEL, jconf, PARAMS, STATE).test_modality("t2", 1)
+    jtester.ModelTester(JMODEL, j32, PARAMS, STATE).test_modality("t2", 1)
+    ttester.ModelTester(TMODEL, tconf, device="cpu").test_modality("t2", 1)
+
+    ref, got, f32 = (_read_results(c.folder) for c in (jconf, tconf, j32))
+    assert sorted(got) == sorted(ref) == sorted(f32) and len(got) == 6
+    for k in ref:
+        r, g = np.array(ref[k])[:, 1:], np.array(got[k])[:, 1:]
+        jax_gap = np.abs(r - np.array(f32[k])[:, 1:]).max()
+        which = "3x JAX's gap (%.3g)" % jax_gap if 3 * jax_gap > 1e-3 else "1e-3"
+        print("%s: %.3g, bound %s" % (k, np.abs(g - r).max(), which))
+        # values are written with 3 decimals
+        assert np.abs(g - r).max() <= max(1e-3, 3 * jax_gap) + 1e-9, (k, which)

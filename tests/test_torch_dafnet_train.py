@@ -46,12 +46,8 @@ from multimodal_segmentation_tpu.train.state import create_train_state as jcreat
 from multimodal_segmentation_tpu.train.steps import DAFNetSteps as JSteps
 from multimodal_segmentation_torch import config as tconfig
 from multimodal_segmentation_torch.train import DAFNetSteps, create_train_state
-from multimodal_segmentation_torch.utils.convert import (
-    component_state_dict,
-    component_trees,
-    load_jax_weights,
-)
-from torch_parity import jax_dafnet, jax_sample_eps, torch_dafnet
+from multimodal_segmentation_torch.utils.convert import component_trees, load_jax_weights
+from torch_parity import jax_dafnet, jax_sample_eps, set_adam, tie_guard, torch_dafnet
 
 torch.set_num_threads(1)
 
@@ -95,17 +91,7 @@ def _perturbed(params, delta):
 
 
 def _tie_guard(model):
-    """Record every anatomy softmax value the port rounds; `check()`
-    asserts none lies within TIE_MARGIN of 0.5."""
-    seen = []
-    hook = model.enc_anatomy.conv_anatomy.register_forward_hook(
-        lambda m, i, o: seen.append(float((torch.softmax(o.detach().float(), 1) - 0.5).abs().min())))
-
-    def check():
-        hook.remove()
-        assert seen and min(seen) > TIE_MARGIN, "an anatomy value lies %.2e from 0.5" % min(seen)
-
-    return check
+    return tie_guard(model, TIE_MARGIN)
 
 
 def _pool_noise(key):
@@ -428,15 +414,7 @@ def test_d_image_pair_loss_matches_jax():
 
 # ------------------------------------------------------------- full steps
 
-def _set_adam(opt, model, names, adam_state):
-    """Copy an optax ScaleByAdamState into a torch Adam over `names`."""
-    count = float(np.asarray(adam_state.count))
-    for n in names:
-        mu = component_state_dict(jax.tree_util.tree_map(np.asarray, adam_state.mu[n]))
-        nu = component_state_dict(jax.tree_util.tree_map(np.asarray, adam_state.nu[n]))
-        for k, p in getattr(model, n).named_parameters():
-            opt.state[p] = {"step": torch.tensor(count), "exp_avg": mu[k].clone(),
-                            "exp_avg_sq": nu[k].clone()}
+_set_adam = set_adam
 
 
 def _sync_from_jax(model, tts, jts):

@@ -686,3 +686,102 @@ def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     assert all(n > 0 for n in launches.values()), launches
     assert launches["round_ste"] >= 2 * 3 + 6   # 3 steps, 6 validation predictions
     assert on_cpu == []
+
+
+def test_spade_decoder_on_the_card_matches_cpu(cuda):
+    """The SPADE decoder at full dafnet_spade_chaos width (128 channels,
+    192x192, two anatomies), f32 with TF32 off, from the same seeded
+    weights on the card and on the CPU: the images within 1e-4 of each
+    other; the gradients of a loss on the image with respect to z and to
+    every parameter on the card, each within 1e-2 of its largest entry of
+    the float64 gradient on the CPU, or of 1e-4 of the largest gradient
+    where that is larger (the deepest cross six blocks of instance norms
+    and 128-channel convolutions). The CPU's own f32 error is printed: it
+    was 2.0e-3 on one CPU and 1.4e-2 on the H100 machine's."""
+    from multimodal_segmentation_torch.config import dafnet_spade_chaos
+    from multimodal_segmentation_torch.nn import Decoder
+    from multimodal_segmentation_torch.nn.blocks import flax_init_
+
+    conf = dafnet_spade_chaos()
+    r = np.random.RandomState(2)
+    s = (r.randint(0, 9, size=(2,) + conf.input_hw)[:, None] == np.arange(8)[:, None, None])
+    s = torch.from_numpy(s.astype(np.float32))
+    z = torch.from_numpy(r.randn(2, conf.num_z).astype(np.float32))
+    target = torch.from_numpy(r.rand(2, 1, *conf.input_hw).astype(np.float32) * 2 - 1)
+    cpu = Decoder("spade", 8, conf.num_z, torch.float32, conf.input_hw)
+    flax_init_(cpu, torch.Generator().manual_seed(conf.seed))
+    card = Decoder("spade", 8, conf.num_z, torch.float32, conf.input_hw).to(cuda)
+    card.load_state_dict(cpu.state_dict())
+    exact = Decoder("spade", 8, conf.num_z, torch.float64, conf.input_hw).double()
+    exact.load_state_dict(cpu.state_dict())
+    out = {}
+    for name, dec, dev, dt in (("cpu", cpu, "cpu", torch.float32),
+                               ("cuda", card, cuda, torch.float32),
+                               ("float64", exact, "cpu", torch.float64)):
+        zz = z.to(dev, dt).requires_grad_(True)
+        y = dec(s.to(dev, dt), zz)
+        loss = (y - target.to(dev, dt)).square().mean()
+        grads = torch.autograd.grad(loss, [zz, *dec.parameters()])
+        out[name] = (y.detach().cpu().double(), [g.cpu().double() for g in grads])
+    assert out["cuda"][0].shape == (2, 1, *conf.input_hw)
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+    names = ["z"] + [n for n, _ in cpu.named_parameters()]
+    # the biases of the convolutions ahead of an instance norm have a
+    # gradient of exactly 0: theirs is held against 1e-4 of the largest
+    scale = 1e-4 * max(g.abs().max().item() for g in out["float64"][1])
+    err = {name: {n: (g - ref).abs().max().item() / max(ref.abs().max().item(), scale)
+                  for n, g, ref in zip(names, out[name][1], out["float64"][1], strict=True)}
+           for name in ("cuda", "cpu")}
+    print("largest gradient error against float64: card %.3g (%s), CPU f32 %.3g (%s)" % (
+        max(err["cuda"].values()), max(err["cuda"], key=err["cuda"].get),
+        max(err["cpu"].values()), max(err["cpu"], key=err["cpu"].get)))
+    assert all(torch.isfinite(g).all() for g in out["cuda"][1])
+    assert max(err["cuda"].values()) <= 1e-2
+
+
+def test_eval_dtype_bf16_predict_mask_on_the_card_matches_cpu(cuda):
+    """eval_dtype='bfloat16' at full dafnet_chaos width: the tester's bf16
+    model on the card and on the CPU, from the same seeded weights (a
+    sharper anatomy head and a non-zero last LocNet Dense, as
+    chip_smoke.py seeds them), on two slices of a synthetic test volume,
+    each fusion type; one round_ste launch a call, and one warp for 'def'
+    and 'max'. The share of pixels with another argmax on the card than on
+    the CPU is at most 1e-3, or at most the share with another argmax in
+    bf16 than in f32 on the card where that is larger: bf16 keeps 8 bits,
+    so the two devices' convolution sums, in other orders, round some
+    activations an ulp apart, and an anatomy value near 0.5 then rounds
+    the other way. (f32 holds 1e-3: chip_smoke.py's cross-device phase.)"""
+    from multimodal_segmentation_torch.data import init_loader
+    from multimodal_segmentation_torch.eval import ModelTester
+
+    conf = dafnet_chaos()
+    model = build_model(conf, device="cuda")
+    g = torch.Generator().manual_seed(conf.seed)
+    with torch.no_grad():
+        model.enc_anatomy.conv_anatomy.weight.mul_(5.0)
+        d1 = model.fuser.locnet.Dense_1
+        d1.weight.copy_(torch.randn(d1.weight.shape, generator=g) * 1e-2)
+        d1.bias.copy_(torch.randn(d1.bias.shape, generator=g) * 1e-2)
+    cpu_model = build_model(conf, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    conf.eval_dtype = "bfloat16"
+    card = ModelTester(model, conf, device="cuda").model
+    cpu = ModelTester(cpu_model, conf, device="cpu").model
+    assert card.enc_anatomy.dtype == cpu.enc_anatomy.dtype == torch.bfloat16
+    data = init_loader("synthetic").load_all_modalities_concatenated(0, "test")
+    x = [data.get_volume_images_modi(i, data.volumes()[0])[:2] for i in (0, 1)]
+    shares = {}
+    for fusion in ("simple", "def", "max"):
+        cuda_kernels.reset_launch_counts()
+        got = card.predict_mask(1, fusion, x, device="cuda").cpu()
+        launches = cuda_kernels.launch_counts()
+        assert launches["round_ste"] == 1
+        assert launches["tps_warp_fwd"] == (fusion != "simple")
+        ref = cpu.predict_mask(1, fusion, x, device="cpu")
+        f32 = model.predict_mask(1, fusion, x, device="cuda").cpu()
+        assert got.dtype == ref.dtype == torch.float32
+        shares[fusion] = [(got.argmax(-1) != b.argmax(-1)).float().mean().item()
+                          for b in (ref, f32)]
+    print("argmax differs, card vs CPU and bf16 vs f32 on the card: %s" % shares)
+    for fusion, (device_share, dtype_share) in shares.items():
+        assert device_share <= max(1e-3, dtype_share), (fusion, device_share, dtype_share)

@@ -29,4 +29,7 @@ def test_every_port_module_imports_without_jax():
     assert res["leaked"] == []
     assert {"multimodal_segmentation_torch.experiment",
             "multimodal_segmentation_torch.ops.cuda_kernels",
-            "multimodal_segmentation_torch.tools.debug_warp_kernel"} <= set(res["modules"])
+            "multimodal_segmentation_torch.tools.debug_warp_kernel",
+            "multimodal_segmentation_torch.data.chaos",
+            "multimodal_segmentation_torch.data.dicom_native",
+            "multimodal_segmentation_torch.tools.dress_rehearsal"} <= set(res["modules"])

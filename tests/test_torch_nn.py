@@ -161,13 +161,16 @@ def test_anatomy_fuser():
 
 def test_batchnorm_train_mode_not_ported():
     """Train-mode BatchNorm is ported now (tests/test_torch_train_ops.py
-    holds it to JAX): it normalises with the batch's statistics. What is
-    still not ported is the other normalisation kinds, which raise."""
+    holds it to JAX): it normalises with the batch's statistics. The other
+    normalisation kinds are ported too: a ConvBlock with norm='instance'
+    holds InstanceNorms and one with norm='none' none
+    (tests/test_torch_spade.py holds both to JAX)."""
     x = torch.from_numpy(np.random.RandomState(0).randn(2, 4, 3, 3).astype(np.float32) * 3 + 1)
     y = tnn.BatchNorm(4).train()(x)
     np.testing.assert_allclose(y.mean(dim=(0, 2, 3)).detach().numpy(), 0.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.ConvBlock(4, 4, norm="instance")
+    block = tnn.ConvBlock(4, 4, norm="instance")
+    assert type(block.Norm_0) is type(block.Norm_1) is tnn.InstanceNorm
+    assert not any("Norm" in k for k in tnn.ConvBlock(4, 4, norm="none").state_dict())
 
 
 @functools.lru_cache(maxsize=None)

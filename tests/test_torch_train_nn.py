@@ -23,7 +23,15 @@ from multimodal_segmentation_torch.utils.convert import (
     component_state_dict,
     component_trees,
 )
-from torch_parity import jax_dafnet, jax_sample_eps, nchw, nhwc, torch_dafnet
+from torch_parity import (
+    bf16_gap_check as _bf16_gap_check,
+    dtypes_by_layer as _dtypes_by_layer,
+    jax_dafnet,
+    jax_sample_eps,
+    nchw,
+    nhwc,
+    torch_dafnet,
+)
 
 torch.set_num_threads(1)
 
@@ -41,6 +49,11 @@ def _anatomy(B, seed, C=8, hw=32):
 
 def _images(shape, seed):
     return (np.random.RandomState(seed).rand(*shape).astype(np.float32) * 2 - 1)
+
+
+def _load_params(module, params):
+    module.load_state_dict(component_state_dict(jax.tree_util.tree_map(np.asarray, params)))
+    return module
 
 
 def _load(module, name):
@@ -102,38 +115,6 @@ def test_film_decoder_matches_jax():
     np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5)
 
 
-def _dtypes_by_layer(jax_module, variables, torch_module, jax_args, torch_args):
-    """{layer name: output dtype name} of every submodule, for both
-    frameworks (Flax's captured intermediates, the port's forward hooks)."""
-    _, inter = jax_module.apply(variables, *jax_args, capture_intermediates=True,
-                                mutable=["intermediates"])
-    want = {}
-    for path, v in jax.tree_util.tree_leaves_with_path(inter["intermediates"]):
-        keys = [k.key for k in path if isinstance(k, jax.tree_util.DictKey)]
-        name = ".".join(keys[:keys.index("__call__")])
-        if name:
-            want[name] = str(v.dtype)
-    got = {}
-    hooks = [m.register_forward_hook(
-        lambda m, i, o, n=n: got.__setitem__(n, str(o.dtype).replace("torch.", "")))
-        for n, m in torch_module.named_modules() if n]
-    torch_module(*torch_args)
-    for h in hooks:
-        h.remove()
-    return got, want
-
-
-def _bf16_gap_check(got_bf16, got_f32, ref_bf16, ref_f32):
-    """Each output: JAX's dtype, within 3 times JAX's own bf16-to-f32 gap
-    of JAX's bf16 value, and not equal to the port's f32 value."""
-    for a, a32, r, r32 in zip(got_bf16, got_f32, ref_bf16, ref_f32, strict=True):
-        assert str(a.dtype).replace("torch.", "") == str(r.dtype)
-        a, r = a.detach().float().numpy(), np.asarray(r, np.float32)
-        gap = np.abs(r - np.asarray(r32, np.float32)).max()
-        assert 0 < np.abs(a - r).max() <= 3 * gap, (np.abs(a - r).max(), gap)
-        assert not np.array_equal(a, a32.detach().float().numpy())
-
-
 @pytest.mark.parametrize("seed", [1, 5, 9])
 def test_modality_encoder_bf16_matches_jax(seed):
     """compute dtype bfloat16: every layer's output dtype is the Flax
@@ -191,8 +172,18 @@ def test_film_decoder_bf16_matches_jax(seed):
 
 
 def test_spade_decoder_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.Decoder("spade", 8, NZ)
+    """The SPADE decoder is ported: on a JAX-initialised SPADE decoder's
+    weights its image lies within 1e-5 of JAX's (tests/test_torch_spade.py
+    holds it block by block, in bf16 and through the training step)."""
+    s = _anatomy(3, 7)
+    z = np.random.RandomState(8).randn(3, NZ).astype(np.float32)
+    jdec = jnn.Decoder("spade", (32, 32))
+    params = jax.jit(jdec.init)(jax.random.PRNGKey(4), s, z)["params"]
+    ref = jax.jit(jdec.apply)({"params": params}, s, z)
+    dec = _load_params(tnn.Decoder("spade", 8, NZ, torch.float32, (32, 32)), params)
+    got = dec(nchw(s), torch.from_numpy(z))
+    assert got.shape == (3, 1, 32, 32)
+    np.testing.assert_allclose(nhwc(got), np.asarray(ref), atol=1e-5)
 
 
 @pytest.mark.parametrize("name,in_ch", [("d_mask", 4), ("d_image1", 1)])
@@ -267,7 +258,7 @@ def _counts(preset):
     return out
 
 
-@pytest.mark.parametrize("preset", ["tiny", "dafnet_chaos"])
+@pytest.mark.parametrize("preset", ["tiny", "dafnet_chaos", "dafnet_spade_chaos"])
 @pytest.mark.parametrize("component", ["enc_modality", "decoder", "balancer",
                                        "d_mask", "d_image1", "d_image2"])
 def test_training_component_sizes_match_jax(preset, component):

@@ -23,7 +23,7 @@ import torch
 from multimodal_segmentation_tpu import nn as jnn
 from multimodal_segmentation_tpu.models import build_model as build_jax_model
 from multimodal_segmentation_torch.models import build_model as build_torch_model
-from multimodal_segmentation_torch.utils.convert import load_jax_weights
+from multimodal_segmentation_torch.utils.convert import component_state_dict, load_jax_weights
 
 ANATOMY_GAIN = 5.0
 DENSE1_STD = 0.03
@@ -42,10 +42,13 @@ def seeded_batch_stats(tree, rng):
     return out
 
 
-def jax_dafnet(conf, seed=0):
-    """(jax model, params, state) with the seeded changes above; numpy leaves."""
+def jax_dafnet(conf, seed=0, jit_init=False):
+    """(jax model, params, state) with the seeded changes above; numpy leaves.
+    `jit_init` compiles the init (the SPADE decoder's takes over a minute
+    op by op on the CPU)."""
     model = build_jax_model(conf)
-    params, state = model.init(jax.random.PRNGKey(seed))
+    init = jax.jit(model.init) if jit_init else model.init
+    params, state = init(jax.random.PRNGKey(seed))
     params = jax.tree_util.tree_map(np.array, params)
     state = dict(jax.tree_util.tree_map(np.array, state))
     rng = np.random.RandomState(seed)
@@ -83,3 +86,60 @@ def jax_sample_eps(params, key, batch, hw, anatomy_channels=8):
         {"params": p}, jnp.zeros((batch,) + tuple(hw) + (anatomy_channels,)),
         jnp.zeros((batch,) + tuple(hw) + (1,)), rngs={"sample": key})
     return np.array(z)
+
+
+def dtypes_by_layer(jax_module, variables, torch_module, jax_args, torch_args):
+    """{layer name: output dtype name} of every submodule, for both
+    frameworks (Flax's captured intermediates, the port's forward hooks)."""
+    _, inter = jax_module.apply(variables, *jax_args, capture_intermediates=True,
+                                mutable=["intermediates"])
+    want = {}
+    for path, v in jax.tree_util.tree_leaves_with_path(inter["intermediates"]):
+        keys = [k.key for k in path if isinstance(k, jax.tree_util.DictKey)]
+        name = ".".join(keys[:keys.index("__call__")])
+        if name:
+            want[name] = str(v.dtype)
+    got = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: got.__setitem__(n, str(o.dtype).replace("torch.", "")))
+        for n, m in torch_module.named_modules() if n]
+    torch_module(*torch_args)
+    for h in hooks:
+        h.remove()
+    return got, want
+
+
+def bf16_gap_check(got_bf16, got_f32, ref_bf16, ref_f32):
+    """Each output: JAX's dtype, within 3 times JAX's own bf16-to-f32 gap
+    of JAX's bf16 value, and not equal to the port's f32 value."""
+    for a, a32, r, r32 in zip(got_bf16, got_f32, ref_bf16, ref_f32, strict=True):
+        assert str(a.dtype).replace("torch.", "") == str(r.dtype)
+        a, r = a.detach().float().numpy(), np.asarray(r, np.float32)
+        gap = np.abs(r - np.asarray(r32, np.float32)).max()
+        assert 0 < np.abs(a - r).max() <= 3 * gap, (np.abs(a - r).max(), gap)
+        assert not np.array_equal(a, a32.detach().float().numpy())
+
+
+def tie_guard(model, margin):
+    """Record every anatomy softmax value the port rounds; `check()`
+    asserts none lies within `margin` of 0.5."""
+    seen = []
+    hook = model.enc_anatomy.conv_anatomy.register_forward_hook(
+        lambda m, i, o: seen.append(float((torch.softmax(o.detach().float(), 1) - 0.5).abs().min())))
+
+    def check():
+        hook.remove()
+        assert seen and min(seen) > margin, "an anatomy value lies %.2e from 0.5" % min(seen)
+
+    return check
+
+
+def set_adam(opt, model, names, adam_state):
+    """Copy an optax ScaleByAdamState into a torch Adam over `names`."""
+    count = float(np.asarray(adam_state.count))
+    for n in names:
+        mu = component_state_dict(jax.tree_util.tree_map(np.asarray, adam_state.mu[n]))
+        nu = component_state_dict(jax.tree_util.tree_map(np.asarray, adam_state.nu[n]))
+        for k, p in getattr(model, n).named_parameters():
+            opt.state[p] = {"step": torch.tensor(count), "exp_avg": mu[k].clone(),
+                            "exp_avg_sq": nu[k].clone()}
