@@ -14,7 +14,11 @@ Phases, one JSON line each:
                 `host_ms` (host time to enqueue a call), the bound, the
                 plain version's time and the library call's `library_ms`,
                 `library_device_ms` and `library_host_ms` (tps_warp_fwd at
-                the inference and training shapes in f32 and bf16;
+                the inference and training shapes in f32 and bf16, B = 36
+                among them: automated pairing's 2K = 6 fusion directions;
+                tps_warp_bwd at B = 36 too (`tps_warp_bwd_auto`);
+                `rotation_auto`: automated pairing's 3+3+4+4-channel
+                group; round_ste at (36, 8, 192, 192) too;
                 tps_warp_bwd with small, large, zero, scattered,
                 window-edge and border locations, g contiguous and
                 channels-first; `rotation`: a training step's three
@@ -65,6 +69,23 @@ Phases, one JSON line each:
                 checkpoint save, of the component export and of the image
                 callback; checkpoint bytes, kernel launches, validation
                 logs, test Dice, peak memory, artifacts, the SWA check
+  train-auto    the train phase under automated pairing at full
+                dafnet_chaos width (n_pairs 3, batch 6, 192x192), f32 and
+                bf16, NEW_TRAIN_STEPS timed steps: 2/1/3/2 launches a step,
+                B1 and B2 at B = 36, the balancer moves
+  train-mmsdnet the same at full mmsdnet_chaos width: a batch is a
+                supervised generator step (with its Z-regressor update) and
+                a discriminator step, 3/1/3/6 launches a batch
+  experiment-paths
+                the CLI on dafnet_config_chaos --automatedpairing and on
+                mmsdnet_config_chaos, --l_mix 0.5, one epoch of PATHS_STEPS
+                batches, validation and the test, then --test on the same
+                folder: logs (val_weight_0..2 sum to 1), step counts, the
+                same results.csv, exact launches
+  balancer-order
+                the JAX package's learning check of the balancer (tiny,
+                automated pairing, 6 epochs of 20 batches): the logged
+                weights sum to 1 and the expert pair's is the largest
   chaos         the dress rehearsal (multimodal_segmentation_torch.tools.
                 dress_rehearsal) at full dafnet_chaos width: a 20-volume
                 CHAOS DICOM tree at the archive's profile, cold and warm
@@ -122,12 +143,20 @@ EXP_EPOCHS = 3
 EXP_RESUME_EPOCHS = 4
 # train-spade phase: timed steps (after TRAIN_WARMUP)
 SPADE_STEPS = 6
+# train-auto and train-mmsdnet phases: timed batches (after TRAIN_WARMUP)
+NEW_TRAIN_STEPS = 6
 # lockstep phase: step_supervised calls in each dtype (the JAX test's 40)
 LOCKSTEP_STEPS = 40
 # chaos phase: the fabricated tree (MMSEG_TPU_CHAOS_DIR) and the batches an
 # epoch of its one epoch
 CHAOS_ROOT = os.path.join(OUT_DIR, "chaos", "MR")
 CHAOS_STEPS = 4
+# experiment-paths phase: batches of its one epoch
+PATHS_STEPS = 2
+# balancer-order phase (tiny): epochs and batches an epoch of the JAX
+# package's learning check (tests/test_executor_variants.py:227-259)
+BALANCER_EPOCHS = 6
+BALANCER_STEPS = 20
 
 
 def emit(phase, **fields):
@@ -274,12 +303,44 @@ def grid_of(torch, locs, H, W):
     return (locs.flip(-1) * scale - 1.0).reshape(locs.shape[0], H, W, 2)
 
 
+def fwd_measure(torch, vol, off):
+    """tps_warp_fwd on vol (B, H, W, C) with offsets off (B, 25, 2), timed
+    against its plain version and grid_sample (the library call)."""
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch.ops import tps
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_fwd
+
+    B, H, W, C = vol.shape
+    cp = tps.control_grid((5, 5), vol.device)
+
+    def library(v, grid):
+        return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    # bound: each input read once, the output written once; operations:
+    # the basis once a point (25 terms of ~9, a logf counted as one), and
+    # per point and image the flow's sums (25 x 2 FMAs), ~20 for the affine
+    # term and corner weights and 8 per channel for the blend
+    wv = tps.tps_coefficients(off)
+    grid = grid_of(torch, tps.tps_sample_locations(off, (H, W)), H, W).to(vol.dtype)
+    nbytes = vol.numel() * vol.element_size()
+    out = measure(rotating(lambda: vol.clone(), nbytes),
+                  lambda v: tps_warp_fwd(v, wv, cp), lambda v: tps._tps_warp_plain(v, off),
+                  lambda v: library(v, grid),
+                  2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
+                  H * W * 25 * 9 + B * H * W * (25 * 4 + 20 + 8 * C))
+    out["library_max_abs_diff"] = (library(vol, grid).permute(0, 2, 3, 1).float()
+                                   - tps_warp_fwd(vol, wv, cp).float()).abs().max().item()
+    return out
+
+
 def warp_fwd_phase(torch, dev):
     """tps_warp_fwd at the inference shapes: B = 24 (a padded volume),
     192x192, C = 8 anatomy channels, bf16 and f32; and at the training
-    shapes, B = 12 (both fusion directions of batch 6), f32 and bf16."""
+    shapes, B = 12 (both fusion directions of batch 6) and B = 36 (the
+    automated loss's 2K = 6 fusion directions of batch 6), f32 and bf16."""
     import numpy as np
-    import torch.nn.functional as F
 
     from multimodal_segmentation_torch.ops import tps
     from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_fwd
@@ -288,27 +349,8 @@ def warp_fwd_phase(torch, dev):
     r = np.random.RandomState(0)
     cp = tps.control_grid((5, 5), dev)
 
-    def library(v, grid):
-        return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
-
     def timed(vol, off):
-        # bound: each input read once, the output written once; operations:
-        # the basis once a point (25 terms of ~9, a logf counted as one),
-        # and per point and image the flow's sums (25 x 2 FMAs), ~20 for
-        # the affine term and corner weights and 8 per channel for the blend
-        B = vol.shape[0]
-        wv = tps.tps_coefficients(off)
-        grid = grid_of(torch, tps.tps_sample_locations(off, (H, W)), H, W).to(vol.dtype)
-        nbytes = vol.numel() * vol.element_size()
-        out = measure(rotating(lambda: vol.clone(), nbytes),
-                      lambda v: tps_warp_fwd(v, wv, cp), lambda v: tps._tps_warp_plain(v, off),
-                      lambda v: library(v, grid),
-                      2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
-                      H * W * 25 * 9 + B * H * W * (25 * 4 + 20 + 8 * C))
-        out["library_max_abs_diff"] = (library(vol, grid).permute(0, 2, 3, 1).float()
-                                       - tps_warp_fwd(vol, wv, cp).float()).abs().max().item()
-        return out
+        return fwd_measure(torch, vol, off)
 
     B = 24
     vol32 = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
@@ -343,18 +385,19 @@ def warp_fwd_phase(torch, dev):
         res[name] = {"max_abs_err": max(errs.values()), "errors": errs, "cases": cover,
                      **timed(vol, cases["small"])}
 
-    # the training shapes: B = 12, f32 and bf16, offsets like a trained
-    # LocNet's
-    B = 12
-    vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
-    off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
-    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
-        name = str(dtype).replace("torch.", "")
-        v = vol.to(dtype)
-        err = (tps_warp_fwd(v, tps.tps_coefficients(off), cp).float()
-               - tps._tps_warp_plain(v, off).float()).abs().max().item()
-        check(err <= tol, "tps_warp_fwd training shape %s error %.3g > %g" % (name, err, tol))
-        res["train_" + name] = {"shape": [B, H, W, C], "max_abs_err": err, **timed(v, off)}
+    # the training shapes: B = 12 and 36, f32 and bf16, offsets like a
+    # trained LocNet's
+    for B, prefix in ((12, "train_"), (36, "train_auto_")):
+        vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
+        off = torch.from_numpy(((r.rand(B, 25, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 2e-2)):
+            name = str(dtype).replace("torch.", "")
+            v = vol.to(dtype)
+            err = (tps_warp_fwd(v, tps.tps_coefficients(off), cp).float()
+                   - tps._tps_warp_plain(v, off).float()).abs().max().item()
+            check(err <= tol, "tps_warp_fwd training shape B=%d %s error %.3g > %g"
+                  % (B, name, err, tol))
+            res[prefix + name] = {"shape": [B, H, W, C], "max_abs_err": err, **timed(v, off)}
     return res
 
 
@@ -395,6 +438,76 @@ def bwd_cases(torch, r, B, H, W, dev):
     border[:, ::5, 1] = r.choice(xs, border[:, ::5, 1].shape)
     out["border"] = torch.from_numpy(border.astype(np.float32)).to(dev)
     return out
+
+
+def bwd_measure(torch, vol, g, locs, layout=""):
+    """tps_warp_bwd on vol, g (B, H, W, C) at locs (B, H*W, 2), g
+    contiguous or (layout) channels-first as the fuser hands it over, timed
+    against its plain version and grid_sample's backward alone (the
+    library call, one retained graph per rotating buffer)."""
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch.ops import tps
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd as bwd
+
+    B, H, W, C = vol.shape
+    nbytes = vol.numel() * vol.element_size()
+    grid = grid_of(torch, locs, H, W).to(vol.dtype)
+    bufs = []
+    for v, gg in rotating(lambda: (vol.clone(), g.clone()), 2 * nbytes):
+        vv = v.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        gr = grid.detach().requires_grad_(True)
+        out = F.grid_sample(vv, gr, mode="bilinear", padding_mode="zeros", align_corners=True)
+        gk = gg.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) if layout else gg
+        bufs.append((v, gk, (out, vv, gr, gg.permute(0, 3, 1, 2))))
+
+    def library(buf):
+        out, vv, gr, gg = buf[2]
+        torch.autograd.grad(out, (vv, gr), gg, retain_graph=True)
+
+    # bound: vol, g and locs read once, grad_vol and grad_locs written
+    # once; operations per point and channel: 4 weighted scatters and the
+    # two location terms (~16), per point ~20 for the weights
+    return measure(bufs, lambda b: bwd(b[0], locs, b[1]),
+                   lambda b: tps._tps_warp_bwd_plain(b[0], locs, b[1]), library,
+                   3 * nbytes + 2 * locs.numel() * 4, B * H * W * (16 * C + 20))
+
+
+def warp_bwd_auto_phase(torch, dev):
+    """tps_warp_bwd at the automated loss's shape: B = 36 (2K = 6 fusion
+    directions of batch 6), 192x192, C = 8, f32, at the small, large and
+    border locations of bwd_cases with the fuser's channels-first g; the
+    bounds of warp_bwd_phase; timed at the small case."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.ops import tps
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd as bwd
+
+    B, H, W, C = 36, 192, 192, 8
+    r = np.random.RandomState(2)
+    vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
+    g = torch.from_numpy(r.randn(B, H, W, C).astype(np.float32)).to(dev)
+    g = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    cases = {k: v for k, v in bwd_cases(torch, r, B, H, W, dev).items()
+             if k in ("small", "large", "border")}
+    errs = {}
+    for case, locs in cases.items():
+        rv, rl = tps._tps_warp_bwd_plain(vol, locs, g)
+        gv, gl = bwd(vol, locs, g)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(gv).all() and torch.isfinite(gl).all()),
+              "non-finite warp gradient at B=36 (%s)" % case)
+        e_vol = (gv - rv).abs().max().item()
+        vmax = rv.abs().max().item()
+        excess = ((gl - rl).abs() - 1e-4 * rl.abs()).max().item()
+        check(excess <= 5e-5, "tps_warp_bwd B=36 %s grad_locs error beyond 5e-5 + 1e-4 rel: "
+              "%.3g" % (case, excess))
+        check(e_vol <= 1e-5 * vmax, "tps_warp_bwd B=36 %s grad_vol error %.3g > 1e-5 x %.3g"
+              % (case, e_vol, vmax))
+        errs[case] = {"grad_vol": e_vol, "grad_vol_max": vmax,
+                      "grad_locs": (gl - rl).abs().max().item()}
+    return {"shape": [B, H, W, C], "max_abs_err": max(e["grad_vol"] for e in errs.values()),
+            "errors": errs, **bwd_measure(torch, vol, g, cases["small"])}
 
 
 def warp_bwd_phase(torch, dev):
@@ -455,32 +568,8 @@ def warp_bwd_phase(torch, dev):
         a, b = bwd(vol, locs, g)[0], bwd(vol, locs, g)[0]
         rerun = (a.float() - b.float()).abs().max().item()
 
-        # the library yardstick: grid_sample's backward alone, one retained
-        # graph per rotating buffer
-        nbytes = vol.numel() * vol.element_size()
-
         def timed(locs, layout):
-            grid = grid_of(torch, locs, H, W).to(dtype)
-            bufs = []
-            for v, gg in rotating(lambda: (vol.clone(), g.clone()), 2 * nbytes):
-                vv = v.permute(0, 3, 1, 2).detach().requires_grad_(True)
-                gr = grid.detach().requires_grad_(True)
-                out = F.grid_sample(vv, gr, mode="bilinear", padding_mode="zeros",
-                                    align_corners=True)
-                gk = gg.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1) if layout else gg
-                bufs.append((v, gk, (out, vv, gr, gg.permute(0, 3, 1, 2))))
-
-            def library(buf):
-                out, vv, gr, gg = buf[2]
-                torch.autograd.grad(out, (vv, gr), gg, retain_graph=True)
-
-            # bound: vol, g and locs read once, grad_vol and grad_locs
-            # written once; operations per point and channel: 4 weighted
-            # scatters and the two location terms (~16), per point ~20 for
-            # the weights
-            return measure(bufs, lambda b: bwd(b[0], locs, b[1]),
-                           lambda b: tps._tps_warp_bwd_plain(b[0], locs, b[1]), library,
-                           3 * nbytes + 2 * locs.numel() * 4, B * H * W * (16 * C + 20))
+            return bwd_measure(torch, vol, g, locs, layout)
 
         res[name] = {
             "max_abs_err": max(e["grad_vol"] for e in errs.values()),
@@ -639,20 +728,78 @@ def rotation_phase(torch, dev):
     return res
 
 
+# the automated step's first rotation group (train/steps.py): x1_pairs,
+# x2_pairs with n_pairs = 3 candidate slices, m1, m2
+AUTO_ROTATION_GROUP = (("x1_pairs", 3), ("x2_pairs", 3), ("m1", 4), ("m2", 4))
+
+
+def rotation_auto_phase(torch, dev):
+    """rotate_group on the automated step's group of 3 + 3 + 4 + 4
+    channels (a 3-channel f32 pixel is 12 bytes, so its arrays copy 4-byte
+    vectors), B = 6, 192x192: bit-exact against the group concatenated,
+    sampled by the plain gather and split, and against the kernel's plain
+    version, for f32 and bf16 images and {0,1} masks at +-20 degrees and
+    between, and at exact .5 ties on a 33x33 image. Timed, one launch,
+    against its plain version and grid_sample nearest on the group
+    concatenated beforehand."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch.ops import augment
+    from multimodal_segmentation_torch.ops import cuda_kernels as ck
+
+    B, H, W = 6, 192, 192
+    r = np.random.RandomState(5)
+    th = torch.from_numpy(np.radians(np.array(ROTATION_ANGLES_DEG, np.float32))).to(dev)
+    checked = 0
+    for (b, h, w, angles) in ((B, H, W, th), (4, 33, 33, tie_angles(torch, dev, 4))):
+        cos_t, sin_t = torch.cos(angles), torch.sin(angles)
+        for dtype in (torch.float32, torch.bfloat16):
+            for masks in (False, True):
+                arrays = _group_arrays(torch, r, b, h, w, AUTO_ROTATION_GROUP, masks, dtype, dev)
+                ref = _rotation_reference(torch, arrays, angles)
+                for got in (ck.rotate_group(arrays, cos_t, sin_t),
+                            augment.random_rotate_batch(arrays, angles),
+                            augment._rotate_group_plain(arrays, cos_t, sin_t)):
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(x, y) for x, y in zip(got, ref)),
+                          "rotate_group 3+3+4+4 differs (%dx%d, %s, masks=%s)"
+                          % (h, w, dtype, masks))
+                checked += 1
+
+    group = _group_arrays(torch, r, B, H, W, AUTO_ROTATION_GROUP, False, torch.float32, dev)
+    nbytes = sum(a.numel() * 4 for a in group)
+    bufs = rotating(lambda: [a.clone() for a in group], nbytes)
+    cats = {id(buf): torch.cat(buf, -1).permute(0, 3, 1, 2) for buf in bufs}
+    grid = grid_of(torch, augment.rotation_locations(th, H, W), H, W)
+    cos_t, sin_t = torch.cos(th), torch.sin(th)
+    # bound: each array read once and each output written once; ~26
+    # operations a point (the location, round, clamp, index)
+    out = measure(bufs, lambda buf: ck.rotate_group(buf, cos_t, sin_t),
+                  lambda buf: _rotation_reference(torch, buf, th),
+                  lambda buf: F.grid_sample(cats[id(buf)], grid, mode="nearest",
+                                            padding_mode="border", align_corners=True),
+                  2 * nbytes, B * H * W * 26)
+    return {"group": [list(a) for a in AUTO_ROTATION_GROUP], "shape": [B, H, W],
+            "bit_exact": True, "groups_checked": checked, "max_abs_err": 0.0, **out}
+
+
 def round_ste_phase(torch, dev):
     """round_ste against torch.round (the plain version, and also the
     library call), bit for bit: values with exact .5 ties in f32 and bf16,
     at the training shape (12, 8, 192, 192: both modalities' anatomies of
     batch 6), the inference shape (38, 8, 192, 192: a 19-slice volume's two
-    modalities) and a size that is a multiple neither of 128 nor of a
-    block, from an aligned and from an unaligned start. Timed at both
-    shapes in f32."""
+    modalities), the automated training shape (36, 8, 192, 192: the K = 3
+    pairs' anatomies of one dual-encoder call) and a size that is a
+    multiple neither of 128 nor of a block, from an aligned and from an
+    unaligned start. Timed at the three shapes in f32."""
     import numpy as np
 
     from multimodal_segmentation_torch.ops.cuda_kernels import round_ste
 
     r = np.random.RandomState(3)
-    shapes = {"train": (12, 8, 192, 192), "inference": (38, 8, 192, 192), "odd": (1000003,)}
+    shapes = {"train": (12, 8, 192, 192), "inference": (38, 8, 192, 192),
+              "train_auto": (36, 8, 192, 192), "odd": (1000003,)}
     res, err = {}, 0.0
     for name, shape in shapes.items():
         n = int(np.prod(shape))
@@ -810,13 +957,55 @@ def debug_warp_phase(torch, device):
 
 
 def _seed_weights(torch, model, seed):
-    """The seeded changes named at ANATOMY_GAIN / DENSE1_STD."""
+    """The seeded changes named at ANATOMY_GAIN / DENSE1_STD (every anatomy
+    head: DAFNet's one, MMSDNet's two)."""
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        model.enc_anatomy.conv_anatomy.weight.mul_(ANATOMY_GAIN)
+        for name, m in model.named_modules():
+            if name.endswith("conv_anatomy"):
+                m.weight.mul_(ANATOMY_GAIN)
         d1 = model.fuser.locnet.Dense_1
         d1.weight.copy_(torch.randn(d1.weight.shape, generator=g) * DENSE1_STD)
         d1.bias.copy_(torch.randn(d1.bias.shape, generator=g) * DENSE1_STD)
+
+
+def _numpy_weights(torch, model, seed):
+    """Every kernel of `model` drawn again from numpy's RandomState(seed),
+    in module order, from Flax's truncated normal (|x| <= 2, by rejection)
+    at the module's own variance scaling (nn/blocks.py::_fan), and every
+    spectral `u` from U[-1, 1): the same values on every machine and torch
+    version. torch's trunc_normal_ draws other values under torch 2.11
+    (the H100 machine) than under 2.13 from one seed."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.nn import blocks
+
+    r = np.random.RandomState(seed)
+
+    def truncated(shape):
+        x = r.standard_normal(shape)
+        out = np.abs(x) > 2.0
+        while out.any():
+            x[out] = r.standard_normal(int(out.sum()))
+            out = np.abs(x) > 2.0
+        return x
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, blocks.Conv2d):
+                kk = m.kernel_size[0] * m.kernel_size[1]
+                fans = (m.in_channels * kk, m.out_channels * kk)
+            elif isinstance(m, blocks.Linear) and m.init_kind != "zeros":
+                fans = (m.in_features, m.out_features)
+            else:
+                continue
+            scale, fan = blocks._fan(m.init_kind, *fans)
+            std = math.sqrt(scale / fan) / blocks._TRUNC_STD
+            m.weight.copy_(torch.from_numpy((truncated(tuple(m.weight.shape)) * std)
+                                            .astype(np.float32)))
+            if hasattr(m, "u"):
+                m.u.copy_(torch.from_numpy(r.uniform(-1.0, 1.0, tuple(m.u.shape))
+                                           .astype(np.float32)))
 
 
 def _mean_dice(folder):
@@ -950,25 +1139,72 @@ def cross_device_phase(torch, conf, model, warm, device):
             "pixels": int(agree.numel())}
 
 
+# Kernel launches on the card of each call that launches any, by kernel
+# (B1 tps_warp_fwd, B2 tps_warp_bwd, B3 nearest_warp, B4 round_ste). A
+# DAFNet step, expert or automated: 2 B1 (the loss's fusion directions, 12
+# or 2K x 6 = 36 of them, and the fake pools'), 1 B2, 3 B3 (the rotation
+# groups), 2 B4 (the loss's anatomies, the pools'). An MMSDNet generator
+# step: 2 B1 (the loss's two directions; the Z-regressor's two in one
+# call), 1 B2, 1 B3, 4 B4 (two private heads in the loss and in the
+# Z-regressor); its discriminator step: 1 B1 (the pool), 2 B3 (dm; dx1 and
+# dx2), 2 B4. A predict_mask call: one B4 an anatomy head, one B1 for
+# 'def' and 'max'; the balancer's validation: n_pairs + 1 B4.
+STEP_LAUNCHES = {
+    "dafnet_step": {"tps_warp_fwd": 2, "tps_warp_bwd": 1, "nearest_warp": 3, "round_ste": 2},
+    "mmsdnet_gen": {"tps_warp_fwd": 2, "tps_warp_bwd": 1, "nearest_warp": 1, "round_ste": 4},
+    "mmsdnet_disc": {"tps_warp_fwd": 1, "tps_warp_bwd": 0, "nearest_warp": 2, "round_ste": 2},
+}
+KERNEL_NAMES = ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste", "tps_flow_dbg")
+
+
+def launches_of(calls):
+    """{kernel: launches} of {step kind: calls}, by STEP_LAUNCHES."""
+    return {k: sum(n * STEP_LAUNCHES[kind].get(k, 0) for kind, n in calls.items())
+            for k in KERNEL_NAMES}
+
+
+def launches_per_batch(conf):
+    """Kernel launches of one train_phase batch on the card: a DAFNet step
+    (2/1/3/2), or MMSDNet's generator and discriminator steps (3/1/3/6)."""
+    if conf.model == "mmsdnet":
+        return launches_of({"mmsdnet_gen": 1, "mmsdnet_disc": 1})
+    return launches_of({"dafnet_step": 1})
+
+
 def _train_setup(torch, conf, device):
-    """(model, train state, step_supervised, expert batch iterator) at
-    `conf`, with the slice's seeded weights."""
+    """(model, train state, step, batch iterator) at `conf`, with the
+    slice's seeded weights, on the batches of the executor's assembly from
+    the synthetic loader's split-0 training data. A step is one batch:
+    DAFNet's step_supervised (expert or automated pairing), or MMSDNet's
+    step_supervised then step_discriminator."""
     from multimodal_segmentation_torch.data import init_loader
-    from multimodal_segmentation_torch.data.batches import expert_batches
+    from multimodal_segmentation_torch.data.batches import TrainingData
     from multimodal_segmentation_torch.models import build_model
-    from multimodal_segmentation_torch.train import DAFNetSteps, create_train_state
+    from multimodal_segmentation_torch.train import create_train_state, make_steps
 
     loader = init_loader("synthetic", hw=conf.input_hw)
     loader.modalities = list(conf.modality)
     model = build_model(conf, device=device)
     _seed_weights(torch, model, conf.seed)
-    return (model, create_train_state(model, conf), DAFNetSteps(model, conf).step_supervised,
-            expert_batches(conf, loader))
+    steps = make_steps(model, conf)
+
+    def step(ts, batch):
+        ts, metrics = steps.step_supervised(ts, batch["sup"])
+        if conf.model == "mmsdnet":
+            ts, disc = steps.step_discriminator(ts, batch["disc"])
+            metrics = {**metrics, **disc}
+        return ts, metrics
+
+    return (model, create_train_state(model, conf), step,
+            TrainingData(conf, loader).assembled_batches())
 
 
 def train_phase(torch, conf, device, warmup, steps):
-    """step_supervised on expert batches from the synthetic loader's
-    training split, as the JAX package's DAFNetExecutor assembles them."""
+    """`warmup` then `steps` timed batches of _train_setup's step on the
+    synthetic loader's training split, as the JAX package's executors
+    assemble them: every metric, ms per batch, slices/s, launches (exactly
+    launches_per_batch a batch on the card), peak memory, which parameters
+    moved."""
     from multimodal_segmentation_torch.ops import cuda_kernels
 
     on_card = device == "cuda"
@@ -999,17 +1235,20 @@ def train_phase(torch, conf, device, warmup, steps):
             times.append(dt)
     launches = cuda_kernels.launch_counts()
     if on_card:
-        want = {"tps_warp_fwd": 2 * steps, "tps_warp_bwd": steps, "nearest_warp": 3 * steps,
-                "round_ste": 2 * steps, "tps_flow_dbg": 0}
+        want = {k: v * steps for k, v in launches_per_batch(conf).items()}
         check(launches == want, "train launches %s != %s" % (launches, want))
     moved = {n: max((p.detach() - b).abs().max().item()
                     for p, b in zip(getattr(model, n).parameters(), before[n])) for n in names}
-    check(all(moved[n] > 0 for n in names if n != "balancer"), "a component did not move: %s" % moved)
-    check(moved["balancer"] == 0.0, "the balancer moved: %g" % moved["balancer"])
+    # the expert loss does not reach the balancer; the automated one does
+    frozen = ["balancer"] if conf.model == "dafnet" and not conf.automatedpairing else []
+    check(all(moved[n] > 0 for n in names if n not in frozen),
+          "a component did not move: %s" % moved)
+    check(all(moved[n] == 0.0 for n in frozen), "the balancer moved: %s" % moved)
     ms = sorted(1e3 * t for t in times)
     p50 = ms[len(ms) // 2]
     out = {
         "config": conf.folder,
+        "automatedpairing": conf.automatedpairing,
         "device": str(device),
         "batch": conf.batch_size,
         "input": list(conf.input_shape),
@@ -1052,7 +1291,7 @@ def train_cross_device_phase(torch, device):
 
     conf = config.tiny_test_config()
     model, _, _, batches = _train_setup(torch, conf, device)
-    batch = next(batches)
+    batch = next(batches)["sup"]
     noise = draw_noise(torch.Generator().manual_seed(conf.seed), conf.batch_size,
                        conf.num_z, conf.rotation_range)
     with torch.no_grad():
@@ -1133,6 +1372,204 @@ def lockstep_phase(torch, device):
             "launches": launches}
 
 
+class _Counted:
+    """Counts, while it is entered, the calls of the steps and of
+    predict_mask that launch kernels: DAFNet steps, MMSDNet generator and
+    discriminator steps, predict_mask calls and those that warp, and the
+    balancer's validations."""
+
+    def __init__(self):
+        from multimodal_segmentation_torch.models.base import MaskPredictor
+        from multimodal_segmentation_torch.train.executor import DAFNetExecutor
+        from multimodal_segmentation_torch.train.steps import DAFNetSteps, MMSDNetSteps
+
+        self.n = {"dafnet_step": 0, "mmsdnet_gen": 0, "mmsdnet_disc": 0, "predict": 0,
+                  "warped": 0, "balancer_validation": 0}
+        self.targets = [(DAFNetSteps, "_step", "dafnet_step"),
+                        (MMSDNetSteps, "_gen_step", "mmsdnet_gen"),
+                        (MMSDNetSteps, "step_discriminator", "mmsdnet_disc"),
+                        (MaskPredictor, "predict_mask", "predict"),
+                        (DAFNetExecutor, "validate_balancer_weights", "balancer_validation")]
+        self.saved = []
+
+    def __enter__(self):
+        for cls, name, key in self.targets:
+            fn = getattr(cls, name)
+            self.saved.append((cls, name, fn))
+
+            def counted(*args, _fn=fn, _key=key, **kw):
+                self.n[_key] += 1
+                if _key == "predict":
+                    ftype = args[2] if len(args) > 2 else kw["fusion_type"]
+                    self.n["warped"] += ftype in ("def", "max")
+                return _fn(*args, **kw)
+
+            setattr(cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+        self.saved = []
+
+    def want(self, conf, image_epochs):
+        """The kernel launches those calls, and the image callback's
+        anatomy encodes in `image_epochs` epochs, make on the card."""
+        n = self.n
+        out = launches_of({k: n[k] for k in STEP_LAUNCHES})
+        heads = 2 if conf.model == "mmsdnet" else 1
+        out["tps_warp_fwd"] += n["warped"]
+        out["round_ste"] += (heads * (n["predict"] + image_epochs)
+                             + (conf.n_pairs + 1) * n["balancer_validation"])
+        return out
+
+
+def experiment_paths_phase(torch, device, presets=(
+        ("dafnet_config_chaos", "--automatedpairing"), ("mmsdnet_config_chaos",))):
+    """This slice's two CLI paths at full width on the synthetic data:
+    `--config dafnet_config_chaos --automatedpairing --l_mix 0.5` and
+    `--config mmsdnet_config_chaos --l_mix 0.5`, each one epoch of
+    PATHS_STEPS batches (both generator paths run), validation and the
+    test; then `--test` on the same folder, which restores the checkpoint
+    and writes the same results. Checks: the step counts, the logs finite,
+    automated pairing's val_weight_0..2 summing to 1 within 1e-3, MMSDNet's
+    four validation logs, 12 results.csv each, and on the card the launches
+    of every step, predict_mask call, image callback and balancer
+    validation exactly."""
+    from multimodal_segmentation_torch import experiment
+    from multimodal_segmentation_torch.ops import cuda_kernels
+
+    on_card = device == "cuda"
+    work = os.path.join(OUT_DIR, "experiment_paths")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cwd = os.getcwd()
+    out = {}
+    try:
+        os.chdir(work)
+        for preset in presets:
+            flags = ["--config", *preset, "--split", "0", "--l_mix", "0.5", "--epochs", "1",
+                     "--dataset", "synthetic", "--test_dataset", "synthetic", "--device", device]
+            name = preset[0].replace("_config_chaos", "") + ("-auto" if len(preset) > 1 else "")
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _Counted() as counted:
+                ex = experiment.Experiment().run(flags, steps_per_epoch=PATHS_STEPS)
+            train_s = time.perf_counter() - t0
+            launches = cuda_kernels.launch_counts()
+            conf = ex.conf
+            folder = os.path.join(work, conf.folder)
+            with open(os.path.join(folder, "training.csv")) as f:
+                rows = list(csv.DictReader(f))
+            check(len(rows) == 1 and all(math.isfinite(float(v)) for v in rows[0].values()),
+                  "%s: training.csv %s" % (name, rows))
+            per_batch = 3 if conf.model == "mmsdnet" else 2
+            check(ex.final_state.step == per_batch * PATHS_STEPS,
+                  "%s: %d steps" % (name, ex.final_state.step))
+            logs = {k: float(v) for k, v in rows[0].items()}
+            if conf.automatedpairing:
+                w = [logs["val_weight_%d" % j] for j in range(conf.n_pairs)]
+                check(abs(sum(w) - 1.0) <= 1e-3, "%s: val weights %s" % (name, w))
+            else:
+                check({"val_loss_mod2_s1def", "rec_Z", "dis_M"} <= set(logs)
+                      and "val_loss_mod1_fused" not in logs, "%s: logs %s" % (name, sorted(logs)))
+            if on_card:
+                want = counted.want(conf, image_epochs=1)
+                check(launches == want, "%s launches %s != %s" % (name, launches, want))
+
+            results = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(folder) for f in fs
+                             if f == "results.csv")
+            check(len(results) == 12, "%s: %d results.csv" % (name, len(results)))
+            first = {p: open(p).read() for p in results}
+            cuda_kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with _Counted() as counted_test:
+                experiment.Experiment().run(flags + ["--test"])
+            test_s = time.perf_counter() - t0
+            test_launches = cuda_kernels.launch_counts()
+            check({p: open(p).read() for p in results} == first,
+                  "%s: --test wrote other results" % name)
+            if on_card:
+                want = counted_test.want(conf, image_epochs=0)
+                check(test_launches == want, "%s --test launches %s != %s"
+                      % (name, test_launches, want))
+            dice = {os.path.basename(os.path.dirname(p)): _mean_dice(os.path.dirname(p))[0]
+                    for p in results}
+            check(all(0.0 <= d <= 1.0 for d in dice.values()), "%s: Dice %s" % (name, dice))
+            out[name] = {
+                "config": conf.folder, "model": conf.model,
+                "automatedpairing": conf.automatedpairing, "l_mix": conf.l_mix,
+                "steps": ex.final_state.step, "train_and_test_s": train_s, "test_s": test_s,
+                "epoch_seconds": ex.epoch_seconds[0], "logs": logs,
+                "launches": launches, "test_launches": test_launches, "calls": counted.n,
+                "test_dice": dice,
+            }
+            if on_card:
+                out[name]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            del ex
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def balancer_order_phase(torch, device):
+    """The JAX package's learning check of the balancer
+    (tests/test_executor_variants.py:227-259, marked slow there): the tiny
+    config under automated pairing, BALANCER_EPOCHS epochs of
+    BALANCER_STEPS batches, SWA from epoch 0, on the synthetic fixture
+    (organ centres drift along the slice axis, so the candidate pairs
+    differ in alignment). Fails unless the last epoch's logged val_weight_j
+    sum to 1 within 1e-3 and val_weight_0, the expert pair, exceeds the
+    others. Launches exact on the card.
+
+    Weights: _numpy_weights from conf.seed, then the script's seeded
+    changes (_seed_weights: a sharper anatomy head, a non-zero LocNet
+    head). The outcome depends on the start: from torch's own draws, which
+    differ between torch versions, the balancer's untrained head ranked a
+    neighbour first on one machine and the expert on another, and from
+    the unsharpened head the rounded anatomies of most slices were empty,
+    which makes every candidate's overlap 1."""
+    from multimodal_segmentation_torch import config
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.train.executor import make_executor
+
+    conf = config.tiny_test_config()
+    conf.dataset_name = conf.test_dataset = "synthetic"
+    conf.automatedpairing = True
+    conf.epochs, conf.steps_per_epoch, conf.swa_start_epoch = BALANCER_EPOCHS, BALANCER_STEPS, 0
+    conf.folder = os.path.join(OUT_DIR, "balancer_order")
+    shutil.rmtree(conf.folder, ignore_errors=True)
+    model = build_model(conf, device=device)
+    _numpy_weights(torch, model, conf.seed)
+    _seed_weights(torch, model, conf.seed)
+    cuda_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _Counted() as counted:
+        ex = make_executor(conf, model, device=device)
+        ex.train()
+    seconds = time.perf_counter() - t0
+    launches = cuda_kernels.launch_counts()
+    with open(os.path.join(conf.folder, "training.csv")) as f:
+        rows = list(csv.DictReader(f))
+    weights = [[float(r["val_weight_%d" % j]) for j in range(conf.n_pairs)] for r in rows]
+    last = weights[-1]
+    check(len(rows) == BALANCER_EPOCHS, "balancer-order: %d epochs" % len(rows))
+    check(abs(sum(last) - 1.0) <= 1e-3, "balancer-order: weights sum to %.6f" % sum(last))
+    check(last[0] > max(last[1:]), "balancer-order: the expert pair is not weighted first: %s"
+          % last)
+    if device == "cuda":
+        want = counted.want(conf, image_epochs=BALANCER_EPOCHS)
+        check(launches == want, "balancer-order launches %s != %s" % (launches, want))
+    return {"config": "tiny", "device": str(device), "epochs": BALANCER_EPOCHS,
+            "steps_per_epoch": BALANCER_STEPS, "seconds": seconds, "val_weights": weights,
+            "margin_last": last[0] - max(last[1:]), "launches": launches}
+
+
 def chaos_phase(torch, device, tiny=False):
     """The dress rehearsal (tools/dress_rehearsal.py) at full dafnet_chaos
     width: the 20-volume CHAOS tree fabricated at the archive's profile
@@ -1148,31 +1585,19 @@ def chaos_phase(torch, device, tiny=False):
     import contextlib
     import io
 
+    from multimodal_segmentation_torch import config
     from multimodal_segmentation_torch.data.chaos import ChaosLoader
-    from multimodal_segmentation_torch.models.dafnet import DAFNet
     from multimodal_segmentation_torch.ops import cuda_kernels
     from multimodal_segmentation_torch.tools import dress_rehearsal
 
-    calls = {"predict": 0, "warped": 0}
-    predict = DAFNet.predict_mask
-
-    def counted(self, modality_index, fusion_type, images, device="cuda"):
-        calls["predict"] += 1
-        calls["warped"] += fusion_type in ("def", "max")
-        return predict(self, modality_index, fusion_type, images, device=device)
-
     argv = ["--root", CHAOS_ROOT, "--epochs", "1", "--l_mix", "0.5", "--steps-per-epoch",
             str(CHAOS_STEPS), "--device", device] + (["--tiny"] if tiny else [])
-    DAFNet.predict_mask = counted
-    try:
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        cuda_kernels.reset_launch_counts()
-        with contextlib.redirect_stdout(io.StringIO()):
-            res = dress_rehearsal.main(argv)
-        launches = cuda_kernels.launch_counts()
-    finally:
-        DAFNet.predict_mask = predict
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.reset_launch_counts()
+    with _Counted() as counted, contextlib.redirect_stdout(io.StringIO()):
+        res = dress_rehearsal.main(argv)
+    launches = cuda_kernels.launch_counts()
     run = res.pop("run")
     files = sum(sum(c) for c in dress_rehearsal.RAW_COUNTS.values())
     check(res["dicom_files"] == res["native_reads_cold"] == files,
@@ -1183,9 +1608,7 @@ def chaos_phase(torch, device, tiny=False):
     check(steps == 2 * CHAOS_STEPS, "steps %d != %d" % (steps, 2 * CHAOS_STEPS))
     image_epochs = sum("images" in v for v in run["epoch_seconds"].values())
     if device == "cuda":
-        want = {"tps_warp_fwd": 2 * steps + calls["warped"], "tps_warp_bwd": steps,
-                "nearest_warp": 3 * steps,
-                "round_ste": 2 * steps + calls["predict"] + image_epochs, "tps_flow_dbg": 0}
+        want = counted.want(config.dafnet_chaos(), image_epochs)
         check(launches == want, "chaos launches %s != %s" % (launches, want))
     check(all(0.0 <= d <= 1.0 for d in run["dice"].values()), "Dice %s" % run["dice"])
     out = {"config": "dafnet_chaos" if not tiny else "tiny", "device": str(device), **res,
@@ -1194,7 +1617,7 @@ def chaos_phase(torch, device, tiny=False):
            **{k: run[k] for k in ("flags", "steps", "run_s", "test_s", "dice",
                                   "training_csv_last")},
            "epoch_seconds": {str(e): v for e, v in run["epoch_seconds"].items()},
-           "predict_mask_calls": calls, "launches": launches}
+           "calls": counted.n, "launches": launches}
     if device == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     return out
@@ -1212,7 +1635,6 @@ def experiment_phase(torch, device, preset):
 
     from multimodal_segmentation_torch import experiment
     from multimodal_segmentation_torch.models import build_model
-    from multimodal_segmentation_torch.models.dafnet import DAFNet
     from multimodal_segmentation_torch.ops import cuda_kernels
     from multimodal_segmentation_torch.train.executor import make_executor
 
@@ -1224,16 +1646,6 @@ def experiment_phase(torch, device, preset):
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
 
-    # predict_mask calls, for the launch check: each runs the anatomy
-    # encoder once; 'def' and 'max' warp once
-    calls = {"predict": 0, "warped": 0}
-    predict = DAFNet.predict_mask
-
-    def counted(self, modality_index, fusion_type, images, device="cuda"):
-        calls["predict"] += 1
-        calls["warped"] += fusion_type in ("def", "max")
-        return predict(self, modality_index, fusion_type, images, device=device)
-
     def trained(conf):
         model = build_model(conf, device=device)
         _seed_weights(torch, model, conf.seed)
@@ -1242,7 +1654,7 @@ def experiment_phase(torch, device, preset):
         return ex
 
     cwd = os.getcwd()
-    DAFNet.predict_mask = counted
+    counted = _Counted().__enter__()
     try:
         os.chdir(work)
         if on_card:
@@ -1301,11 +1713,7 @@ def experiment_phase(torch, device, preset):
         steps = ts.step
         image_epochs = sum("images" in s for s in seconds.values())
         if on_card:
-            # per step 2/1/3/2; predict_mask: the anatomy encoder once,
-            # 'def'/'max' one warp; the image callback encodes once more
-            want = {"tps_warp_fwd": 2 * steps + calls["warped"], "tps_warp_bwd": steps,
-                    "nearest_warp": 3 * steps,
-                    "round_ste": 2 * steps + calls["predict"] + image_epochs, "tps_flow_dbg": 0}
+            want = counted.want(conf, image_epochs)
             check(launches == want, "experiment launches %s != %s" % (launches, want))
         dice = {}
         for mod in conf.modality:
@@ -1328,7 +1736,7 @@ def experiment_phase(torch, device, preset):
         check(len(artifacts["models"]) == 9 and artifacts["results.csv"] == 12,
               "artifacts %s" % artifacts)
     finally:
-        DAFNet.predict_mask = predict
+        counted.__exit__()
         os.chdir(cwd)
 
     def ms(part):
@@ -1352,7 +1760,7 @@ def experiment_phase(torch, device, preset):
         "ms_image_callback": ms("images"),
         "checkpoint_bytes": os.path.getsize(os.path.join(ckpt_dir, "epoch_%d.pt" % ckpt_epochs[-1])),
         "launches": launches,
-        "predict_mask_calls": calls,
+        "calls": counted.n,
         "validation_logs": {k: float(v) for k, v in rows[-1].items() if k.startswith("val_")},
         "training_csv_last": {k: float(v) for k, v in rows[-1].items()},
         "test_dice": dice,
@@ -1462,6 +1870,16 @@ def main(argv=None):
         config.PRESETS.setdefault("tiny", config.tiny_test_config)
         emit("experiment", **experiment_phase(torch, "cpu", "tiny"))
         emit("chaos", **chaos_phase(torch, "cpu", tiny=True))
+        for name, model, auto in (("train-auto", "dafnet", True),
+                                  ("train-mmsdnet", "mmsdnet", False)):
+            for dtype in ("float32", "bfloat16"):
+                conf = config.tiny_test_config(model)
+                conf.automatedpairing, conf.compute_dtype = auto, dtype
+                emit(name, **train_phase(torch, conf, "cpu", 1, 2))
+        config.PRESETS.setdefault("tiny_mmsdnet", lambda: config.tiny_test_config("mmsdnet"))
+        emit("experiment-paths", **experiment_paths_phase(
+            torch, "cpu", (("tiny", "--automatedpairing"), ("tiny_mmsdnet",))))
+        emit("balancer-order", **balancer_order_phase(torch, "cpu"))
         return 0
 
     if not torch.cuda.is_available():
@@ -1493,7 +1911,9 @@ def main(argv=None):
     kern = {
         "tps_warp_fwd": warp_fwd_phase(torch, dev),
         "tps_warp_bwd": warp_bwd_phase(torch, dev),
+        "tps_warp_bwd_auto": warp_bwd_auto_phase(torch, dev),
         "rotation": rotation_phase(torch, dev),
+        "rotation_auto": rotation_auto_phase(torch, dev),
         "round_ste": round_ste_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
         "flow": flow_phase(torch, dev),
@@ -1537,8 +1957,27 @@ def main(argv=None):
         spade[dtype] = train_phase(torch, conf, "cuda", TRAIN_WARMUP, SPADE_STEPS)
         emit("train-spade", card=smi, **spade[dtype])
     emit("train-cross-device", **train_cross_device_phase(torch, "cuda"))
+    # this slice's paths at full width: automated pairing and MMSDNet
+    new_train = {}
+    for name, preset, auto in (("train-auto", config.dafnet_chaos, True),
+                               ("train-mmsdnet", config.mmsdnet_chaos, False)):
+        for dtype in ("float32", "bfloat16"):
+            conf = preset()
+            conf.dataset_name, conf.compute_dtype, conf.automatedpairing = "synthetic", dtype, auto
+            row = train_phase(torch, conf, "cuda", TRAIN_WARMUP, NEW_TRAIN_STEPS)
+            key = name + ("-bf16" if dtype == "bfloat16" else "")
+            if dtype == "bfloat16":
+                row["p50_over_f32"] = row["p50_ms_per_step"] / new_train[name]["p50_ms_per_step"]
+            new_train[key] = row
+            emit(name, card=smi, **row)
+            torch.cuda.empty_cache()
     exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
     emit("experiment", card=smi, **exp)
+    torch.cuda.empty_cache()
+    paths_exp = experiment_paths_phase(torch, "cuda")
+    emit("experiment-paths", card=smi, **paths_exp)
+    balancer = balancer_order_phase(torch, "cuda")
+    emit("balancer-order", card=smi, **balancer)
     torch.cuda.empty_cache()
     chaos = chaos_phase(torch, "cuda")
     emit("chaos", card=smi, **chaos)
@@ -1550,11 +1989,24 @@ def main(argv=None):
              "train": train["launches"], "train-bf16": train_bf16["launches"],
              "lockstep": lockstep["launches"], "train-spade": spade["float32"]["launches"],
              "train-spade-bf16": spade["bfloat16"]["launches"], "experiment": exp["launches"],
-             "chaos": chaos["launches"], "debug-warp": bisect["launches"]}
+             "chaos": chaos["launches"], "debug-warp": bisect["launches"],
+             **{k: v["launches"] for k, v in new_train.items()},
+             **{"experiment-" + k: {n: v["launches"][n] + v["test_launches"][n]
+                                    for n in v["launches"]} for k, v in paths_exp.items()},
+             "balancer-order": balancer["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"
     pallas = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
+    # the shapes this slice's paths give the kernels (automated pairing)
+    slice9 = {
+        "tps_warp_fwd": {"B=36 float32": kern["tps_warp_fwd"]["train_auto_float32"],
+                         "B=36 bfloat16": kern["tps_warp_fwd"]["train_auto_bfloat16"]},
+        "tps_warp_bwd": {"B=36 float32": kern["tps_warp_bwd_auto"]},
+        "nearest_warp": {"3+3+4+4 channels": kern["rotation_auto"]},
+        "round_ste": {"(36, 8, 192, 192) float32": kern["round_ste"]["train_auto_float32"]},
+        "tps_flow_dbg": {},
+    }
     summary = []
     for name, source, replaces, k, work in (
             ("tps_warp_fwd", "tps_warp.cu", pallas + "315", kern["tps_warp_fwd"][main_dtype],
@@ -1587,6 +2039,10 @@ def main(argv=None):
             "library_device_ms": k["library_device_ms"],
             "library_host_ms": k["library_host_ms"],
             "work": work,
+            "slice9_shapes": {case: {f: r[f] for f in ("max_abs_err", "ms", "device_ms",
+                                                       "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms", "library_device_ms")}
+                              for case, r in slice9[name].items()},
         })
     print(smi)
     print(json.dumps({"kernels": summary}))

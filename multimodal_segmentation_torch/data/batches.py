@@ -1,14 +1,16 @@
-"""Host-side batch streams and the DAFNet batch assembly of the training
-executor.
+"""Host-side batch streams and the batch assembly of the training
+executors.
 
 The port's copy of multimodal_segmentation_tpu/data/batches.py:14-45 and
-of the data half of its executor (train/executor.py:63-194, 430-448): the
-l_mix labelled subset and its unlabelled complement (with `randomise`),
-the real-mask pool of the mask discriminator, the image pool of the image
+of the data half of its executor (train/executor.py:63-194, 430-448,
+519-530): the l_mix labelled subset and its unlabelled complement (with
+`randomise`, or with `automatedpairing`'s candidate neighbours), the
+real-mask pool of the mask discriminator, the image pool of the image
 discriminators, and per step one batch per active path: labelled x1, x2,
-m1, m2 ('sup') and unlabelled x1, x2, m1 ('unsup'), each with dm1, dm2
-from the mask pool and dx1, dx2 from the image pool. Batches are always
-full (wraparound at the epoch's end). Everything here is numpy.
+m1, m2 ('sup') and unlabelled x1, x2, m1 ('unsup'). DAFNet's batches each
+carry dm1, dm2 from the mask pool and dx1, dx2 from the image pool;
+MMSDNet's step has one 'disc' batch of dm, dx1, dx2 instead. Batches are
+always full (wraparound at the epoch's end). Everything here is numpy.
 """
 
 import numpy as np
@@ -50,10 +52,13 @@ class BatchStream:
         return {k: v[idx] for k, v in self.arrays.items()}
 
 
-class DAFNetTrainingData:
+class TrainingData:
     """The training split of `loader` cut as conf says, and the batch
     streams over it, seeded as the JAX executor seeds them: labelled
     conf.seed, unlabelled seed + 1, mask pool seed + 2, image pool seed + 3.
+    Under conf.automatedpairing each slice carries its n_pairs candidate
+    neighbours along channels (expand_pairs, executor.py:76-78, 95-97), and
+    the image keys are x1_pairs, x2_pairs.
 
     Attributes after construction: data / ul_data (the labelled and
     unlabelled MultimodalPairedData, or None), data_len (slices of the
@@ -62,9 +67,6 @@ class DAFNetTrainingData:
     """
 
     def __init__(self, conf, loader):
-        if conf.automatedpairing:
-            raise NotImplementedError(
-                "automated pairing is not ported yet (ROADMAP.md, queue A, item 5)")
         self.conf = conf
         self.loader = loader
         self.data = self._load_labelled()
@@ -73,15 +75,16 @@ class DAFNetTrainingData:
         if self.ul_data is not None and (self.data is None or self.ul_data.size() > self.data_len):
             self.data_len = self.ul_data.size()
 
+        x1, x2 = ("x1_pairs", "x2_pairs") if conf.automatedpairing else ("x1", "x2")
         self.gen_labelled = self.gen_unlabelled = None
         if self.data is not None:
             self.gen_labelled = BatchStream({
-                "x1": self.data.get_images_modi(0), "x2": self.data.get_images_modi(1),
+                x1: self.data.get_images_modi(0), x2: self.data.get_images_modi(1),
                 "m1": self.data.get_masks_modi(0), "m2": self.data.get_masks_modi(1),
             }, conf.batch_size, conf.seed)
         if self.ul_data is not None:
             self.gen_unlabelled = BatchStream({
-                "x1": self.ul_data.get_images_modi(0), "x2": self.ul_data.get_images_modi(1),
+                x1: self.ul_data.get_images_modi(0), x2: self.ul_data.get_images_modi(1),
                 "m1": self.ul_data.get_masks_modi(0),
             }, conf.batch_size, conf.seed + 1)
         self.disc_masks = BatchStream({"m": self._disc_mask_pool()}, conf.batch_size,
@@ -89,6 +92,12 @@ class DAFNetTrainingData:
         dx1, dx2 = self._disc_image_pool()
         self.disc_images = BatchStream({"dx1": dx1, "dx2": dx2}, conf.batch_size,
                                        conf.seed + 3)
+
+    def _expand(self, data):
+        """The n_pairs - 1 neighbours of each slice, modality 0 then 1."""
+        n = self.conf.n_pairs
+        data.expand_pairs(n - 1, 0, neighborhood=n)
+        data.expand_pairs(n - 1, 1, neighborhood=n)
 
     def _training_split(self):
         conf = self.conf
@@ -106,6 +115,8 @@ class DAFNetTrainingData:
         data.sample(int(np.round(conf.l_mix * data.num_volumes)), seed=conf.seed)
         if conf.randomise:
             data.randomise_pairs(conf.n_pairs - 1, seed=conf.seed)
+        elif conf.automatedpairing:
+            self._expand(data)
         return data
 
     def _load_unlabelled(self):
@@ -117,6 +128,8 @@ class DAFNetTrainingData:
         ul = self._training_split()
         if conf.randomise:
             ul.randomise_pairs(length=conf.n_pairs - 1)
+        elif conf.automatedpairing:
+            self._expand(ul)
         if conf.l_mix > 0:
             num_lb = int(np.round(conf.l_mix * ul.num_volumes))
             np.random.seed(conf.seed)
@@ -147,15 +160,24 @@ class DAFNetTrainingData:
         return batch
 
     def assembled_batches(self):
-        """Infinite iterator of one step's batches, {'sup': ..., 'unsup':
-        ...} with the paths that l_mix turns on (executor.py:430-448)."""
+        """Infinite iterator of one step's batches, with the paths that
+        l_mix turns on. DAFNet: {'sup': ..., 'unsup': ...}, each with its
+        own draws from both pools (executor.py:430-448). MMSDNet:
+        {'sup': ..., 'unsup': ..., 'disc': {dm, dx1, dx2}}, the pools drawn
+        once, for the one discriminator step (executor.py:519-530)."""
         conf = self.conf
+        mmsdnet = conf.model == "mmsdnet"
         while True:
             out = {}
             if conf.l_mix > 0:
-                out["sup"] = self._with_pools(dict(next(self.gen_labelled)))
+                out["sup"] = dict(next(self.gen_labelled))
             if conf.l_mix < 1:
-                out["unsup"] = self._with_pools(dict(next(self.gen_unlabelled)))
+                out["unsup"] = dict(next(self.gen_unlabelled))
+            if mmsdnet:
+                out["disc"] = {"dm": next(self.disc_masks)["m"], **next(self.disc_images)}
+            else:
+                for path in out:
+                    self._with_pools(out[path])
             yield out
 
 
@@ -167,5 +189,5 @@ def expert_batches(conf, loader):
     them, and skipped."""
     if conf.l_mix == 0:
         raise ValueError("l_mix = 0 has no labelled volumes, so no supervised batches")
-    for out in DAFNetTrainingData(conf, loader).assembled_batches():
+    for out in TrainingData(conf, loader).assembled_batches():
         yield out["sup"]

@@ -18,7 +18,7 @@ import numpy as np
 from multimodal_segmentation_torch import losses
 from multimodal_segmentation_torch.data.loader_factory import init_loader
 from multimodal_segmentation_torch.models import build_model, full_f32_matmuls
-from multimodal_segmentation_torch.models.dafnet import resolve_device
+from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.utils.observability import save_image_grid
 
 log = logging.getLogger("model_tester")

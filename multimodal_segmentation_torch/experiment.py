@@ -10,8 +10,10 @@ Port of multimodal_segmentation_tpu/experiment.py:22-152, the same CLI:
 'cpu'. The same artifacts: an output folder named from the config, the
 pairing flags, l_mix, the modalities and the split (experiment.py:46-63),
 experiment_configuration.json with the git hash (experiment.py:69-78) and
-logfile.log (experiment.py:21-29). `--automatedpairing` and the
-mmsdnet and cardiac3d models are not ported yet and raise.
+logfile.log (experiment.py:21-29). Presets dafnet_config_chaos (with
+`--automatedpairing` or `--randomise`), dafnet_spade_config_chaos and
+mmsdnet_config_chaos run; the cardiac3d model is not ported yet and
+raises.
 """
 
 import argparse

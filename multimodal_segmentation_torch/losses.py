@@ -106,11 +106,39 @@ def combined_dice_bce(y_true, y_pred, num_classes):
     )
 
 
+def _reference_weighted_bce_perbatch(y_true, y_pred, eps=1e-12):
+    """Per-sample variant of the swapped-argument weighted BCE (costs.py:
+    88-108 as costs.py:142 calls it): the class weights from the
+    predicted mass of the whole batch, the softmax of the ground truth
+    under the log; shape (B,).
+      loss_b = mean_px( -sum_c pred_c * log(softmax(true)_c + eps) * w_c )."""
+    B, H, W, C = y_true.shape
+    n = torch.sum(y_pred, dim=(0, 1, 2))
+    weights = torch.sum(n) / (n + eps)
+    pred = y_pred.reshape(B, H * W, C)
+    true = y_true.reshape(B, H * W, C).float()
+    softmax_t = torch.exp(true) / torch.sum(torch.exp(true), dim=-1, keepdim=True)
+    wce = -torch.sum(pred * torch.log(softmax_t + eps) * weights, dim=2)
+    return torch.mean(wce, dim=1)
+
+
+def combined_dice_bce_perbatch(y_true, y_pred, num_classes, eps=1e-12):
+    """Per-sample combined loss, shape (B,) (costs.py:138-143)."""
+    d = dice_coef_perbatch(y_true[..., :num_classes], y_pred[..., :num_classes], eps)
+    return d + LAMBDA_BCE * _reference_weighted_bce_perbatch(y_true, y_pred)
+
+
 # ---------------- reconstruction and GAN / VAE losses ----------------
 
 def mae(y_true, y_pred):
     """Mean absolute error (Keras 'mae')."""
     return torch.mean(torch.abs(y_true.float() - y_pred.float()))
+
+
+def mae_perbatch(y1, y2):
+    """Per-sample, per-channel MAE over H and W, shape (B, C) (costs.py:
+    24-27): a (B, 1) weight column multiplies it sample by sample."""
+    return torch.mean(torch.abs(y1.float() - y2.float()), dim=(1, 2))
 
 
 def lsgan_fool(d_out):

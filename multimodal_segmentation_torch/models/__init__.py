@@ -1,9 +1,13 @@
-"""Model assemblies. The port has DAFNet (inference and the expert-pairing
-training losses); MMSDNet is still to be ported (ROADMAP.md, queue A)."""
+"""Model assemblies: DAFNet and MMSDNet, each with its training losses
+and the `predict_mask` fusion API."""
 
 import torch
 
-from multimodal_segmentation_torch.models.dafnet import DAFNet, resolve_device
+from multimodal_segmentation_torch.models.base import resolve_device
+from multimodal_segmentation_torch.models.dafnet import DAFNet
+from multimodal_segmentation_torch.models.mmsdnet import MMSDNet
+
+MODELS = {"dafnet": DAFNet, "mmsdnet": MMSDNet}
 
 
 def full_f32_matmuls():
@@ -17,14 +21,12 @@ def build_model(conf, device="cuda", seed=None):
     """Instantiate conf.model on `device`, its weights drawn from a
     torch.Generator seeded with `seed` (default conf.seed)."""
     dev = resolve_device(device)
-    if conf.model == "mmsdnet":
-        raise NotImplementedError("MMSDNet is not ported yet (ROADMAP.md, queue A, item 4)")
-    if conf.model != "dafnet":
+    if conf.model not in MODELS:
         raise ValueError("Unknown model: %s" % conf.model)
     if dev.type == "cuda":
         full_f32_matmuls()
     gen = torch.Generator().manual_seed(conf.seed if seed is None else seed)
-    return DAFNet(conf, generator=gen).to(dev).eval()
+    return MODELS[conf.model](conf, generator=gen).to(dev).eval()
 
 
-__all__ = ["DAFNet", "build_model", "full_f32_matmuls"]
+__all__ = ["DAFNet", "MMSDNet", "build_model", "full_f32_matmuls", "resolve_device"]

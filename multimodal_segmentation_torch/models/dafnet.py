@@ -1,22 +1,21 @@
 """DAFNet: dual anatomy encoder, TPS fuser, VAE modality encoder,
 segmentor, FiLM or SPADE decoder, balancer and the three spectral-norm
-discriminators; the expert-pairing training losses and the `predict_mask`
-fusion API.
+discriminators; the expert- and automated-pairing training losses and the
+`predict_mask` fusion API.
 
 Port of multimodal_segmentation_tpu/models/dafnet.py (components :49-100,
-gen_loss_expert :191-311, fake pools :506-594, discriminator losses
-:596-653, predict_mask :657-685). Public functions take NHWC tensors; the
-components run NCHW. Batch stacking is interleaved (ops/batching.py), so
-one call serves what the reference ran several times, with grouped
-BatchNorm keeping per-invocation statistics. Automated pairing is still
-to be ported (ROADMAP.md, queue A).
+gen_loss_expert :191-311, gen_loss_automated :315-502, fake pools
+:506-594, discriminator losses :596-653, predict_mask :657-685). Public
+functions take NHWC tensors; the components run NCHW. Batch stacking is
+interleaved (ops/batching.py), so one call serves what the reference ran
+several times, with grouped BatchNorm keeping per-invocation statistics.
 """
 
 import torch
 from torch import nn
 
 from multimodal_segmentation_torch import losses
-from multimodal_segmentation_torch.models.base import subsample_pool
+from multimodal_segmentation_torch.models.base import MaskPredictor, subsample_pool
 from multimodal_segmentation_torch.nn import (
     AnatomyFuser,
     Balancer,
@@ -30,9 +29,6 @@ from multimodal_segmentation_torch.nn.blocks import flax_init_
 from multimodal_segmentation_torch.ops.batching import batch_deinterleave as split
 from multimodal_segmentation_torch.ops.batching import batch_interleave as cat
 
-FUSION_TYPES = ("simple", "def", "max", "maxnostn")
-
-
 def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
@@ -41,22 +37,7 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-def resolve_device(device):
-    """torch.device for `device`; 'cuda' without an index means the current
-    card. Raises when CUDA is asked for and there is none: nothing here
-    moves to the CPU unless the caller says device='cpu'."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
-
-
-class DAFNet(nn.Module):
+class DAFNet(MaskPredictor, nn.Module):
     """The nine DAFNet components, initialised from `generator` as Flax
     initialises them. train() / eval() select batch or running BatchNorm
     statistics, as the JAX package's train flag does."""
@@ -101,6 +82,11 @@ class DAFNet(nn.Module):
 
     def component_parameters(self, names):
         return [p for n in names for p in getattr(self, n).parameters()]
+
+    def encode_anatomies(self, x1, x2):
+        """Both modalities' anatomies, NCHW: the dual encoder, modality 0
+        through encoder 1's private path."""
+        return self.enc_anatomy(x1, x2)
 
     # ------------------------------------------------------ expert-pair loss
 
@@ -179,6 +165,124 @@ class DAFNet(nn.Module):
         }
         return total, metrics
 
+    # -------------------------------------------------- automated-pair loss
+
+    def gen_loss_automated(self, batch, gen_eps, supervised):
+        """Generator loss for automated pairing (models/dafnet.py:315-502),
+        batched as the JAX package batches it: one dual-encoder call over
+        the K candidate pairs (pair_groups=K), one VAE call, one fuse of
+        all 2K directions, one balancer call over both directions, one
+        segmentor call over 2 + 2K maps, one decoder call over 4 + 2K
+        inputs, one call per discriminator and the Z-regressor re-encode.
+
+        The Balancer weights each sample, sum_j mean_b(w[b, j] * loss_j[b]),
+        as the JAX package does (models/dafnet.py:322-326), not as TF1's
+        broadcast of the reference, which formed an outer product.
+
+        Args:
+          batch: NHWC tensors x1_pairs, x2_pairs (B, H, W, K), the K
+            candidate slices stacked along channels with the expert pair
+            first; m1 and, when supervised, m2 (B, H, W, num_masks + 1);
+            z1, z2 (B, num_z) sampled N(0, 1).
+          gen_eps: (2B, num_z) reparameterisation noise of the modality
+            encoder, in the interleaved [x1, x2] order.
+          supervised: whether m2 is labelled.
+
+        Returns:
+          (total, metrics), with the metric names of gen_loss_expert.
+        """
+        conf = self.conf
+        nm = conf.num_masks
+        K = conf.n_pairs
+        x1_list = [_nchw(batch["x1_pairs"][..., i : i + 1]) for i in range(K)]
+        x2_list = [_nchw(batch["x2_pairs"][..., i : i + 1]) for i in range(K)]
+        x1, x2 = x1_list[0], x2_list[0]
+        z1_in, z2_in = batch["z1"], batch["z2"]
+
+        # all K candidate pairs through the dual encoder in one pass,
+        # per-(pair, modality) BatchNorm statistics
+        sa, sb = self.enc_anatomy(cat(x1_list), cat(x2_list), pair_groups=K)
+        s1_list, s2_list = split(sa, K), split(sb, K)
+        s1, s2 = s1_list[0], s2_list[0]
+        # modality VAE over both modalities at once
+        z, _, _, kl = self.enc_modality(cat([s1, s2]), cat([x1, x2]), gen_eps)
+        z1, z2 = split(z, 2)
+        kl1, kl2 = split(kl, 2)
+        # all 2K fusion directions in one LocNet/warp call:
+        # s1_def_list[j] = warp(s1_list[j] -> s2), s2_def_list[j] likewise
+        s_def, _ = self.fuser(cat(s1_list + s2_list), cat([s2] * K + [s1] * K))
+        defs = split(s_def, 2 * K)
+        s1_def_list, s2_def_list = defs[:K], defs[K:]
+        # both balancer applications in one call
+        w = self.balancer(cat([s2, s1]), [cat([s1_def_list[j], s2_def_list[j]])
+                                          for j in range(K)])
+        w1, w2 = split(w, 2)
+        # all 2K + 2 segmentations in one call, per-map BatchNorm statistics
+        m = _nhwc(self.segmentor(cat([s1, s2] + s2_def_list + s1_def_list), groups=2 + 2 * K))
+        parts = split(m, 2 + 2 * K)
+        m1, m2 = parts[0], parts[1]
+        m1_def_list, m2_def_list = parts[2 : 2 + K], parts[2 + K :]
+        # all 2K + 4 decodes in one call: y1, y2, the K cross
+        # reconstructions each way and the two z-sampled decodes
+        y = self.decoder(cat([s1, s2] + s1_def_list + s2_def_list + [s1, s2]),
+                         cat([z1, z2] + [z2] * K + [z1] * K + [z1_in, z2_in]))
+        yparts = split(y, 4 + 2 * K)
+        y1, y2 = yparts[0], yparts[1]
+        y2_def_list = yparts[2 : 2 + K]          # decode(s1_def_j, z2)
+        y1_def_list = yparts[2 + K : 2 + 2 * K]  # decode(s2_def_j, z1)
+        y1_zin, y2_zin = yparts[-2], yparts[-1]
+
+        # similarity-weighted cross reconstruction (dafnet.py:283-295)
+        rec_def = sum(
+            torch.mean(w1[:, j : j + 1] * losses.mae_perbatch(_nhwc(x2), _nhwc(y2_def_list[j])))
+            for j in range(K)
+        ) + sum(
+            torch.mean(w2[:, j : j + 1] * losses.mae_perbatch(_nhwc(x1), _nhwc(y1_def_list[j])))
+            for j in range(K)
+        )
+        # similarity-weighted cross segmentation (dafnet.py:297-312)
+        m1_t = batch["m1"]
+        seg_def = sum(
+            torch.mean(w2[:, j] * losses.combined_dice_bce_perbatch(m1_t, m1_def_list[j], nm))
+            for j in range(K))
+        if supervised:
+            m2_t = batch["m2"]
+            seg_def = seg_def + sum(
+                torch.mean(w1[:, j] * losses.combined_dice_bce_perbatch(m2_t, m2_def_list[j], nm))
+                for j in range(K))
+
+        # adversarial forwards, one call per discriminator
+        adv_m, _ = self.d_mask(_nchw(cat([m1, m2, m1_def_list[0], m2_def_list[0]])[..., :nm]))
+        adv_m1, adv_m2, adv_m1_def, adv_m2_def = split(adv_m, 4)
+        adv_y1, adv_y1_def = split(self.d_image1(cat([y1, y1_def_list[0]]))[0], 2)
+        adv_y2, adv_y2_def = split(self.d_image2(cat([y2, y2_def_list[0]]))[0], 2)
+        # Z-regressor branch: re-encode both z-sampled decodes in one call
+        _, z_rec, _, _ = self.enc_modality(cat([s1, s2]), cat([y1_zin, y2_zin]))
+        z1_rec, z2_rec = split(z_rec, 2)
+
+        seg = losses.combined_dice_bce(m1_t, m1, nm)
+        if supervised:
+            seg = seg + losses.combined_dice_bce(m2_t, m2, nm)
+        seg = seg + seg_def
+        adv_m = sum(losses.lsgan_fool(a) for a in (adv_m1, adv_m2, adv_m1_def, adv_m2_def))
+        rec = losses.mae(x1, y1) + losses.mae(x2, y2) + rec_def
+        adv_x = sum(losses.lsgan_fool(a) for a in (adv_y1, adv_y2, adv_y1_def, adv_y2_def))
+        kl = losses.ypred_loss(kl1) + losses.ypred_loss(kl2)
+        z_rec = losses.mae(z1_in, z1_rec) + losses.mae(z2_in, z2_rec)
+        total = (conf.w_sup_M * seg + conf.w_adv_M * adv_m + conf.w_rec_X * rec
+                 + conf.w_adv_X * adv_x + conf.w_kl * kl + conf.w_rec_Z * z_rec)
+        metrics = {
+            "supervised_Mask": seg,
+            "adv_M": adv_m,
+            "rec_X": rec,
+            "adv_X1": losses.lsgan_fool(adv_y1) + losses.lsgan_fool(adv_y1_def),
+            "adv_X2": losses.lsgan_fool(adv_y2) + losses.lsgan_fool(adv_y2_def),
+            "KL": kl,
+            "rec_Z": z_rec,
+            "loss": total,
+        }
+        return total, metrics
+
     # -------------------------------------------------- discriminator losses
 
     @torch.no_grad()
@@ -237,43 +341,3 @@ class DAFNet(nn.Module):
         loss1 = losses.lsgan_disc(*split(d1, 2)) + p1
         loss2 = losses.lsgan_disc(*split(d2, 2)) + p2
         return loss1 + loss2, {"dis_X1": loss1, "dis_X2": loss2}
-
-    @torch.inference_mode()
-    def predict_mask(self, modality_index, fusion_type, images, device="cuda"):
-        """Segment modality `modality_index` from both modalities' images
-        (models/mmsdnet.py:210-232).
-
-        Args:
-          modality_index: 0 or 1, the modality to segment.
-          fusion_type: 'simple' | 'def' | 'max' | 'maxnostn'.
-          images: [x_mod0, x_mod1], each (B, H, W, 1) numpy array or tensor.
-          device: where the model's weights are and the work runs.
-
-        Returns:
-          (B, H, W, num_masks + 1) f32 mask probabilities on `device`.
-        """
-        if fusion_type not in FUSION_TYPES:
-            raise ValueError("fusion_type must be one of %s, got %r"
-                             % (FUSION_TYPES, fusion_type))
-        dev = resolve_device(device)
-        w_dev = next(self.parameters()).device
-        if w_dev != dev:
-            raise ValueError("the model's weights are on %s, not on %s" % (w_dev, dev))
-        x = [torch.as_tensor(im, dtype=torch.float32, device=dev).permute(0, 3, 1, 2)
-             for im in images]
-        idx2 = modality_index
-        idx1 = 1 - idx2
-        # encoder 1 is tied to modality 0's private path
-        if idx1 == 0:
-            s1, s2 = self.enc_anatomy(x[idx1], x[idx2])
-        else:
-            s2, s1 = self.enc_anatomy(x[idx2], x[idx1])
-
-        if fusion_type == "simple":
-            s = s2
-        elif fusion_type == "maxnostn":
-            s = torch.maximum(s1, s2)
-        else:
-            s_def, s_fused = self.fuser(s1, s2, fast=True)
-            s = s_def if fusion_type == "def" else s_fused
-        return self.segmentor(s).permute(0, 2, 3, 1)

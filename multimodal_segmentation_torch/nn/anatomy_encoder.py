@@ -79,3 +79,18 @@ class DualAnatomyEncoder(nn.Module):
         s = _anatomy_head(self.conv_anatomy, h, self.rounding, self.dtype)
         s1, s2 = batch_deinterleave(s, 2)
         return s1, s2
+
+    def _encode(self, down, x):
+        h, skips = down(x.to(self.dtype))
+        h = self.shared_up(self.shared_bottleneck(h), skips)
+        return _anatomy_head(self.conv_anatomy, h, self.rounding, self.dtype)
+
+    def encode1(self, x):
+        """Modality 1 alone through its private path and the shared one
+        (anatomy_encoder.py:135-137): the balancer's validation encodes
+        each candidate slice so (train/executor.py)."""
+        return self._encode(self.down1, x)
+
+    def encode2(self, x):
+        """Modality 2 alone (anatomy_encoder.py:139-140)."""
+        return self._encode(self.down2, x)

@@ -1,12 +1,15 @@
-"""Training executor: the epoch loop around the training steps.
+"""Training executors: the epoch loop around the training steps.
 
-Port of multimodal_segmentation_tpu/train/executor.py:35-510 for DAFNet
-expert pairing (reference model_executors/base_executor.py,
-dafnet_executor.py): the labelled / unlabelled paths per l_mix (with
-`randomise`), the discriminator pools, per-epoch SWA, validation Dice on
-the SWA weights, early stopping with CSV replay on resume, checkpoints with
-auto-resume, the component .npz export and the image artifacts; then the
-tester on the SWA weights.
+Port of multimodal_segmentation_tpu/train/executor.py:35-556 (reference
+model_executors/base_executor.py, dafnet_executor.py, mmsdnet_executor.py):
+the labelled / unlabelled paths per l_mix (with `randomise`, or with
+`automatedpairing`'s candidate neighbours), the discriminator pools,
+validation Dice, early stopping with CSV replay on resume, checkpoints
+with auto-resume, the component .npz export and the image artifacts;
+then the tester. DAFNet keeps a per-epoch SWA average and validates,
+exports and tests it; under automated pairing it also logs the balancer's
+mean weight per candidate pair. MMSDNet has no SWA: it validates, exports
+and tests its live weights, with its 4-metric validation.
 
 Everything runs on `device`, 'cuda' unless the caller passes 'cpu'. Each
 step's batch is on the device before the step asks for it
@@ -23,12 +26,12 @@ import numpy as np
 import torch
 
 from multimodal_segmentation_torch import losses
-from multimodal_segmentation_torch.data.batches import DAFNetTrainingData
+from multimodal_segmentation_torch.data.batches import TrainingData
 from multimodal_segmentation_torch.data.loader_factory import init_loader
 from multimodal_segmentation_torch.data.prefetch import prefetch_to_device
 from multimodal_segmentation_torch.eval.tester import ModelTester
 from multimodal_segmentation_torch.models import full_f32_matmuls
-from multimodal_segmentation_torch.models.dafnet import resolve_device
+from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.train.early_stopping import EarlyStopping
 from multimodal_segmentation_torch.train.state import create_train_state, swa_copy
 from multimodal_segmentation_torch.train.steps import make_steps
@@ -74,7 +77,7 @@ class Executor:
 
     def init_train_data(self):
         conf = self.conf
-        self.train_data = DAFNetTrainingData(conf, self.loader)
+        self.train_data = TrainingData(conf, self.loader)
         self.batches = int(np.ceil(self.train_data.data_len / conf.batch_size))
         if conf.steps_per_epoch:
             self.batches = min(self.batches, conf.steps_per_epoch)
@@ -135,7 +138,13 @@ class Executor:
 
         loss_logger = LossLogger(conf.folder)
         stream = self.train_data.gen_labelled or self.train_data.gen_unlabelled
-        img_cb = TrainingImageCallback(conf.folder, self.model, stream.arrays, self.device)
+        sample = stream.arrays
+        if "x1_pairs" in sample:
+            # automated pairing: the callback shows pair 0, the expert pair
+            # (executor.py:240-249, dafnet_image_callback.py:75-76)
+            sample = dict(sample, x1=sample["x1_pairs"][..., 0:1],
+                          x2=sample["x2_pairs"][..., 0:1])
+        img_cb = TrainingImageCallback(conf.folder, self.model, sample, self.device)
         es = self.early_stopping = EarlyStopping(
             "val_loss_mod2_fused", conf.es_min_delta, conf.es_patience)
         if start_epoch > 0:
@@ -176,7 +185,7 @@ class Executor:
                 f.write("%d, %.3f\n" % (epoch, logs["val_loss"] - 1.0))
 
             if epoch % img_every == 0:
-                with self._timed(seconds, "images"), ts.swa_weights():
+                with self._timed(seconds, "images"), self.eval_weights(ts):
                     img_cb.on_epoch_end(epoch)
             stopping = es.update(epoch, logs)
             last = epoch + 1 == conf.epochs
@@ -185,7 +194,8 @@ class Executor:
                     self.ckpt.save(epoch, ts)
             if epoch % comp_every == 0 or stopping or last:
                 with self._timed(seconds, "export"):
-                    self.ckpt.save_component_weights(os.path.join(conf.folder, "models"), ts.swa)
+                    self.ckpt.save_component_weights(os.path.join(conf.folder, "models"),
+                                                     self.eval_params(ts))
             log.info("Epoch %d seconds: %s", epoch,
                      ", ".join("%s %.2f" % kv for kv in seconds.items()))
             if stopping:
@@ -200,13 +210,29 @@ class Executor:
         return ts
 
     def train_batch(self, ts, epoch_metrics):
-        raise NotImplementedError
+        """The step of each path of the next batch that l_mix turns on;
+        returns the batch."""
+        batch = next(self.batch_iter)
+        for path, step in (("sup", self.steps.step_supervised),
+                           ("unsup", self.steps.step_unsupervised)):
+            if path in batch:
+                self._collect(epoch_metrics, step(ts, batch[path])[1])
+        return batch
 
     def on_epoch_end(self, ts, epoch):
         pass
 
     def on_train_end(self, ts):
         pass
+
+    def eval_weights(self, ts):
+        """A context in which the model holds the weights that are
+        validated, shown, exported and tested (executor.py:265-268)."""
+        return contextlib.nullcontext()
+
+    def eval_params(self, ts):
+        """{parameter name: tensor} of those weights, for the export."""
+        return dict(self.model.named_parameters())
 
     def _collect(self, epoch_metrics, metrics):
         for k, v in metrics.items():
@@ -232,54 +258,51 @@ class Executor:
                       valid.get_masks_modi(0), valid.get_masks_modi(1)))
         return self._val_arrays
 
+    # {log name: (modality, fusion type)} of the validation Dice losses,
+    # and the logs whose mean is val_loss
+    VALIDATION = {}
+    VAL_LOSS_OF = ()
+
     def validate(self, ts):
-        """DAFNet validation losses (dafnet_executor.py:303-354) on the SWA
-        weights, Dice on the device: six predict_mask calls, seven logs."""
+        """1 - binarised Dice of each VALIDATION log on the eval weights,
+        one predict_mask call each, the Dice on the device; val_loss the
+        mean of VAL_LOSS_OF."""
         images0, images1, masks0, masks1 = self._validation_arrays()
-        preds = {}
-        with ts.swa_weights():
-            for t in ("simple", "def", "max"):
-                for name, idx in (("mod2", 1), ("mod1", 0)):
-                    preds[(name, t)] = self.model.predict_mask(idx, t, [images0, images1],
-                                                               device=self.device)
-
-        def d(m, y):
-            return 1.0 - float(losses.dice_torch(m, y, binarise=True))
-
-        logs = {
-            "val_loss_mod1": d(masks0, preds[("mod1", "simple")]),
-            "val_loss_mod2": d(masks1, preds[("mod2", "simple")]),
-            "val_loss_mod2_mod1def": d(masks1, preds[("mod2", "def")]),
-            "val_loss_mod1_mod2def": d(masks0, preds[("mod1", "def")]),
-            "val_loss_mod2_fused": d(masks1, preds[("mod2", "max")]),
-            "val_loss_mod1_fused": d(masks0, preds[("mod1", "max")]),
-        }
-        logs["val_loss"] = float(np.mean([logs["val_loss_mod1"], logs["val_loss_mod2"],
-                                          logs["val_loss_mod2_mod1def"],
-                                          logs["val_loss_mod2_fused"]]))
+        masks = {"mod1": masks0, "mod2": masks1}
+        logs = {}
+        with self.eval_weights(ts):
+            for name, (mod, fusion) in self.VALIDATION.items():
+                pred = self.model.predict_mask(int(mod == "mod2"), fusion, [images0, images1],
+                                               device=self.device)
+                logs[name] = 1.0 - float(losses.dice_torch(masks[mod], pred, binarise=True))
+        logs["val_loss"] = float(np.mean([logs[k] for k in self.VAL_LOSS_OF]))
         return logs
 
     # -------------------------------------------------------------- testing
+    # -------------------------------------------------------------- testing
 
     def test(self):
-        """ModelTester on the SWA weights of the final (or restored) state."""
-        with self.final_state.swa_weights():
+        """ModelTester on the eval weights of the final (or restored) state."""
+        with self.eval_weights(self.final_state):
             ModelTester(self.model, self.conf, device=self.device).run()
 
 
 class DAFNetExecutor(Executor):
     """DAFNet loop: per batch, the supervised and / or unsupervised step;
     SWA over every parameter from conf.swa_start_epoch; validation on the
-    SWA average (dafnet_executor.py:212-284, 303-367)."""
+    SWA average, and under automated pairing the balancer's weights on the
+    live ones (dafnet_executor.py:212-284, 303-367)."""
 
-    def train_batch(self, ts, epoch_metrics):
-        batch = next(self.batch_iter)
-        if "sup" in batch:
-            _, metrics = self.steps.step_supervised(ts, batch["sup"])
-            self._collect(epoch_metrics, metrics)
-        if "unsup" in batch:
-            _, metrics = self.steps.step_unsupervised(ts, batch["unsup"])
-            self._collect(epoch_metrics, metrics)
+    VALIDATION = {
+        "val_loss_mod1": ("mod1", "simple"),
+        "val_loss_mod2": ("mod2", "simple"),
+        "val_loss_mod2_mod1def": ("mod2", "def"),
+        "val_loss_mod1_mod2def": ("mod1", "def"),
+        "val_loss_mod2_fused": ("mod2", "max"),
+        "val_loss_mod1_fused": ("mod1", "max"),
+    }
+    VAL_LOSS_OF = ("val_loss_mod1", "val_loss_mod2", "val_loss_mod2_mod1def",
+                   "val_loss_mod2_fused")
 
     def on_epoch_end(self, ts, epoch):
         swa_update(ts.swa, dict(self.model.named_parameters()), epoch, self.conf.swa_start_epoch)
@@ -291,11 +314,67 @@ class DAFNetExecutor(Executor):
             for n, p in self.model.named_parameters():
                 p.copy_(ts.swa[n])
 
+    def eval_weights(self, ts):
+        return ts.swa_weights()
+
+    def eval_params(self, ts):
+        return ts.swa
+
+    def validate(self, ts):
+        """The validation Dice losses (dafnet_executor.py:303-354) on the
+        SWA weights; under automated pairing also val_weight_0 ..
+        n_pairs - 1."""
+        logs = super().validate(ts)
+        if self.conf.automatedpairing:
+            logs.update(self.validate_balancer_weights())
+        return logs
+
+    @torch.inference_mode()
+    def validate_balancer_weights(self):
+        """The balancer's mean weight per candidate pair on the validation
+        split (executor.py:475-510, dafnet_executor.py:356-367), on the
+        live weights as in the reference: each of modality 0's n_pairs
+        candidates through encode1, modality 1 through encode2, in eval
+        mode. Returns {'val_weight_j': float}."""
+        conf = self.conf
+        valid = self.loader.load_all_modalities_concatenated(
+            conf.split, "validation", conf.image_downsample)
+        valid.crop(conf.input_hw)
+        valid.expand_pairs(conf.n_pairs - 1, 0, neighborhood=conf.n_pairs)
+
+        def nchw(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=self.device).permute(0, 3, 1, 2)
+
+        images0 = valid.get_images_modi(0)
+        enc = self.model.enc_anatomy
+        s1_list = [enc.encode1(nchw(images0[..., i : i + 1])) for i in range(images0.shape[-1])]
+        s2 = enc.encode2(nchw(valid.get_images_modi(1)))
+        w = self.model.balancer(s2, s1_list).float().mean(0).cpu().numpy()
+        return {"val_weight_%d" % j: float(w[j]) for j in range(conf.n_pairs)}
+
+
+class MMSDNetExecutor(Executor):
+    """MMSDNet loop (mmsdnet_executor.py:159-236): per batch, the generator
+    (and Z-regressor) step of each active path, then one mask-discriminator
+    step; no SWA: validation, export and test on the live weights."""
+
+    # the 4-metric validation (mmsdnet_executor.py:210-236)
+    VALIDATION = {
+        "val_loss_mod1": ("mod1", "simple"),
+        "val_loss_mod2": ("mod2", "simple"),
+        "val_loss_mod2_s1def": ("mod2", "def"),
+        "val_loss_mod2_fused": ("mod2", "max"),
+    }
+    VAL_LOSS_OF = tuple(VALIDATION)
+
+    def train_batch(self, ts, epoch_metrics):
+        batch = super().train_batch(ts, epoch_metrics)
+        self._collect(epoch_metrics, self.steps.step_discriminator(ts, batch["disc"])[1])
+        return batch
+
 
 def make_executor(conf, model, device="cuda"):
-    """The executor of conf.model. Automated pairing (with its validation
-    of the balancer's weights) raises in its step (train/steps.py)."""
+    """The executor of conf.model."""
     if conf.model == "mmsdnet":
-        raise NotImplementedError(
-            "the MMSDNet executor is not ported yet (ROADMAP.md, queue A, item 4)")
+        return MMSDNetExecutor(conf, model, device)
     return DAFNetExecutor(conf, model, device)

@@ -3,8 +3,11 @@ vectors), one Adam per parameter group, the SWA running average of the
 parameters, the step and epoch counts and the random generator of the
 step's noise.
 
-Port of multimodal_segmentation_tpu/train/state.py:17-44, 88-118 for
-DAFNet.
+Port of multimodal_segmentation_tpu/train/state.py:17-44, 88-118.
+MMSDNet's state adds `opt_zreg`, the Adam of its Z-regressor over the
+decoder and the modality encoder: parameters that opt_gen updates too, so
+two Adams with moments of their own update them in turn
+(train/state.py:102-114).
 """
 
 import contextlib
@@ -29,6 +32,7 @@ class TrainState:
     swa: dict                                     # {parameter name: SWA average}
     step: int = 0
     epoch: int = 0
+    opt_zreg: torch.optim.Optimizer = None        # MMSDNet's Z-regressor, else None
 
     @contextlib.contextmanager
     def swa_weights(self):
@@ -57,17 +61,20 @@ def swa_copy(model):
 
 
 def create_train_state(model, conf, seed=None):
-    """A TrainState around `model`: one Adam for its GEN_COMPONENTS and one
+    """A TrainState around `model`: one Adam for its GEN_COMPONENTS, one
     for each of its DISC_COMPONENTS (lr from d_mask_params or
-    d_image_params), the SWA average started at the parameters, and a
-    torch.Generator on the model's device seeded with `seed` (default
-    conf.seed)."""
+    d_image_params) and, where the model has ZREG_COMPONENTS, one for them;
+    the SWA average started at the parameters, and a torch.Generator on the
+    model's device seeded with `seed` (default conf.seed)."""
     dev = next(model.parameters()).device
     opt_gen = adam(model.component_parameters(model.GEN_COMPONENTS), conf.lr)
     opt_disc = {}
     for name in model.DISC_COMPONENTS:
         lr = (conf.d_mask_params if name == "d_mask" else conf.d_image_params).lr
         opt_disc[name] = adam(getattr(model, name).parameters(), lr)
+    opt_zreg = None
+    if hasattr(model, "ZREG_COMPONENTS"):
+        opt_zreg = adam(model.component_parameters(model.ZREG_COMPONENTS), conf.lr)
     gen = torch.Generator(device=dev).manual_seed(conf.seed if seed is None else seed)
     return TrainState(model=model, opt_gen=opt_gen, opt_disc=opt_disc, generator=gen,
-                      swa=swa_copy(model))
+                      swa=swa_copy(model), opt_zreg=opt_zreg)

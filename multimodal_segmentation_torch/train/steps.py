@@ -1,17 +1,19 @@
 """Training steps.
 
-Port of multimodal_segmentation_tpu/train/steps.py:103-219 (DAFNetSteps,
-expert pairing). One call runs one batch: three rotations on the device,
-the generator update, one shared fake-pool forward with the updated
-generator, two sequential Adam steps of the mask discriminator and one
-step of both image discriminators (model_executors/dafnet_executor.py:
-369-387). PyTorch runs it eagerly; there is no jit.
+Port of multimodal_segmentation_tpu/train/steps.py:103-299. DAFNet
+(expert or automated pairing): one call runs one batch: three rotations
+on the device, the generator update, one shared fake-pool forward with
+the updated generator, two sequential Adam steps of the mask
+discriminator and one step of both image discriminators
+(model_executors/dafnet_executor.py:369-387). MMSDNet: a generator step
+with its Z-regressor update, and a separate mask-discriminator step
+(mmsdnet_executor.py:242-331). PyTorch runs them eagerly; there is no jit.
 
-Every random draw of a step is in `noise` (see `draw_noise`). When the
-caller passes none, it is drawn from the train state's torch.Generator.
-The JAX package draws the same parts from its key splits
-(train/steps.py:120-121); its streams cannot be replayed in torch, so the
-tests rebuild them there and pass them in as `noise`.
+Every random draw of a step is in `noise` (see `draw_noise`,
+`draw_mmsdnet_noise`, `draw_mmsdnet_disc_noise`). When the caller passes
+none, it is drawn from the train state's torch.Generator. The JAX package
+draws the same parts from its key splits; its streams cannot be replayed
+in torch, so the tests rebuild them there and pass them in as `noise`.
 """
 
 import torch
@@ -50,6 +52,34 @@ def draw_noise(generator, batch, num_z, rotation_range):
     }
 
 
+def draw_mmsdnet_noise(generator, batch, num_z, rotation_range):
+    """The random inputs of one MMSDNet generator step, drawn from
+    `generator` on its device. Parts, with the JAX key each replaces
+    (rng = fold_in(ts.rng, ts.step), split 4, train/steps.py:237-276):
+      angles   1 x (B,) radians (r_aug)
+      gen_eps  (6B, num_z) the VAE sample over the six anatomies (r_gen)
+      zreg_z   6 x (B, num_z) N(0, 1), the Z-regressor's z (r_z)
+    """
+    dev = generator.device
+    return {
+        "angles": [random_rotation_angles(generator, batch, rotation_range)],
+        "gen_eps": torch.randn((6 * batch, num_z), generator=generator, device=dev),
+        "zreg_z": [torch.randn((batch, num_z), generator=generator, device=dev)
+                   for _ in range(6)],
+    }
+
+
+def draw_mmsdnet_disc_noise(generator, batch, rotation_range):
+    """The random inputs of one MMSDNet discriminator step (rng split 2,
+    train/steps.py:284-295): angles, 2 x (B,) radians of dm and of dx1 and
+    dx2 (r_aug and fold_in(r_aug, 1)); pool_idx, (B,) slots in {0..3} of
+    the fake pool (r_dm)."""
+    return {
+        "angles": [random_rotation_angles(generator, batch, rotation_range) for _ in range(2)],
+        "pool_idx": torch.randint(0, 4, (batch,), generator=generator, device=generator.device),
+    }
+
+
 def _noise_on(noise, dev):
     """`noise` with every part a tensor on `dev` (arrays are accepted)."""
     out = {}
@@ -60,6 +90,12 @@ def _noise_on(noise, dev):
         else:
             out[k] = torch.as_tensor(v, dtype=dt, device=dev)
     return out
+
+
+def _on_device(model, batch):
+    """(the model's device, `batch` as f32 tensors there)."""
+    dev = next(model.parameters()).device
+    return dev, {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
 
 
 def _adam_step(opt, params, grads):
@@ -74,21 +110,19 @@ def _adam_step(opt, params, grads):
 
 
 class DAFNetSteps:
-    """DAFNet expert-pairing steps: `step_supervised(ts, batch, noise=None)`
-    and `step_unsupervised(...)` each return (ts, metrics), with the metric
+    """DAFNet steps: `step_supervised(ts, batch, noise=None)` and
+    `step_unsupervised(...)` each return (ts, metrics), with the metric
     names of the JAX package's step. `ts` is updated in place.
 
-    batch: NHWC arrays or tensors x1, x2 (B, H, W, 1), m1 and, supervised,
-    m2 (B, H, W, num_masks) without the residual channel; dm1, dm2 (real
-    masks of the mask discriminator) and dx1, dx2 (pool images of the image
-    discriminators and the fake pools). The model is left in eval mode.
+    batch: NHWC arrays or tensors x1, x2 (B, H, W, 1), or under
+    conf.automatedpairing x1_pairs, x2_pairs (B, H, W, n_pairs) with the
+    expert pair first; m1 and, supervised, m2 (B, H, W, num_masks) without
+    the residual channel; dm1, dm2 (real masks of the mask discriminator)
+    and dx1, dx2 (pool images of the image discriminators and the fake
+    pools). The model is left in eval mode.
     """
 
     def __init__(self, model, conf):
-        if conf.automatedpairing:
-            raise NotImplementedError(
-                "automated pairing is not ported yet (ROADMAP.md, queue A, item 5)"
-            )
         self.model = model
         self.conf = conf
 
@@ -101,9 +135,7 @@ class DAFNetSteps:
     def _step(self, ts, batch, supervised, noise):
         conf = self.conf
         model = ts.model
-        dev = next(model.parameters()).device
-        batch = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
-                 for k, v in batch.items()}
+        dev, batch = _on_device(model, batch)
         B = batch["dx1"].shape[0]
         if noise is None:
             noise = draw_noise(ts.generator, B, conf.num_z, conf.rotation_range)
@@ -112,7 +144,8 @@ class DAFNetSteps:
         # rotation augmentation: one shared angle per sample across the
         # images and masks of one draw (base_executor.py:103-110)
         if conf.rotation_range > 0:
-            keys = ["x1", "x2", "m1"] + (["m2"] if supervised else [])
+            pairs = ["x1_pairs", "x2_pairs"] if conf.automatedpairing else ["x1", "x2"]
+            keys = pairs + ["m1"] + (["m2"] if supervised else [])
             for group, angles in ((keys, noise["angles"][0]),
                                   (["dm1", "dm2"], noise["angles"][1]),
                                   (["dx1", "dx2"], noise["angles"][2])):
@@ -127,7 +160,8 @@ class DAFNetSteps:
         # generator update: gradients of the generator components only
         model.train()
         gen_params = model.component_parameters(model.GEN_COMPONENTS)
-        total, gen_metrics = model.gen_loss_expert(batch, noise["gen_eps"], supervised)
+        gen_loss = model.gen_loss_automated if conf.automatedpairing else model.gen_loss_expert
+        total, gen_metrics = gen_loss(batch, noise["gen_eps"], supervised)
         _adam_step(ts.opt_gen, gen_params,
                    torch.autograd.grad(total, gen_params, allow_unused=True))
 
@@ -162,8 +196,87 @@ class DAFNetSteps:
 
 
 class MMSDNetSteps:
+    """MMSDNet steps (train/steps.py:222-299): `step_supervised(ts, batch,
+    noise=None)` and `step_unsupervised(...)` each run one generator update
+    and then one Z-regressor update on the detached, eval-mode anatomies
+    of the updated generator; `step_discriminator(ts, batch, noise=None)`
+    runs one mask-discriminator update. Each returns (ts, metrics) and
+    advances ts.step by one, as in the JAX package. `ts` is updated in
+    place and the model is left in eval mode.
+
+    Generator batches: NHWC x1, x2 (B, H, W, 1), m1 and, supervised, m2
+    (B, H, W, num_masks) without the residual channel. Discriminator
+    batches: dm (B, H, W, num_masks), the real masks, and dx1, dx2, the
+    images of the fake pool. `noise` is draw_mmsdnet_noise's for the
+    generator steps and draw_mmsdnet_disc_noise's for the discriminator.
+    """
+
     def __init__(self, model, conf):
-        raise NotImplementedError("MMSDNet training is not ported yet (ROADMAP.md, queue A, item 4)")
+        if conf.automatedpairing:
+            raise ValueError("automated pairing is a DAFNet path; MMSDNet trains on the "
+                             "expert pairs")
+        self.model = model
+        self.conf = conf
+
+    def step_supervised(self, ts, batch, noise=None):
+        return self._gen_step(ts, batch, True, noise)
+
+    def step_unsupervised(self, ts, batch, noise=None):
+        return self._gen_step(ts, batch, False, noise)
+
+    def _gen_step(self, ts, batch, supervised, noise):
+        conf = self.conf
+        model = ts.model
+        dev, batch = _on_device(model, batch)
+        if noise is None:
+            noise = draw_mmsdnet_noise(ts.generator, batch["x1"].shape[0], conf.num_z,
+                                       conf.rotation_range)
+        noise = _noise_on(noise, dev)
+        if conf.rotation_range > 0:
+            keys = ["x1", "x2", "m1"] + (["m2"] if supervised else [])
+            batch.update(zip(keys, random_rotate_batch([batch[k] for k in keys],
+                                                       noise["angles"][0])))
+        batch["m1"] = add_residual(batch["m1"])
+        if supervised:
+            batch["m2"] = add_residual(batch["m2"])
+
+        model.train()
+        gen_params = model.component_parameters(model.GEN_COMPONENTS)
+        total, gen_metrics = model.gen_loss(batch, noise["gen_eps"], supervised)
+        _adam_step(ts.opt_gen, gen_params,
+                   torch.autograd.grad(total, gen_params, allow_unused=True))
+
+        # the Z-regressor: its own Adam over the decoder and the modality
+        # encoder, on the updated generator's eval-mode anatomies
+        # (mmsdnet_executor.py:267-276)
+        model.eval()
+        s_list = model.make_z_regressor_anatomies(batch["x1"], batch["x2"])
+        zreg_params = model.component_parameters(model.ZREG_COMPONENTS)
+        z_total, z_metrics = model.z_regressor_loss(s_list, noise["zreg_z"])
+        _adam_step(ts.opt_zreg, zreg_params,
+                   torch.autograd.grad(z_total, zreg_params, allow_unused=True))
+        ts.step += 1
+        return ts, {k: v.detach() for k, v in {**gen_metrics, **z_metrics}.items()}
+
+    def step_discriminator(self, ts, batch, noise=None):
+        conf = self.conf
+        model = ts.model
+        dev, batch = _on_device(model, batch)
+        if noise is None:
+            noise = draw_mmsdnet_disc_noise(ts.generator, batch["dm"].shape[0],
+                                            conf.rotation_range)
+        noise = _noise_on(noise, dev)
+        if conf.rotation_range > 0:
+            for group, angles in ((["dm"], noise["angles"][0]),
+                                  (["dx1", "dx2"], noise["angles"][1])):
+                batch.update(zip(group, random_rotate_batch([batch[k] for k in group], angles)))
+        model.eval()
+        fake = model.make_fake_masks(batch["dx1"], batch["dx2"], noise["pool_idx"])
+        d_params = list(model.d_mask.parameters())
+        loss, metrics = model.d_mask_loss(batch["dm"][..., : conf.num_masks], fake)
+        _adam_step(ts.opt_disc["d_mask"], d_params, torch.autograd.grad(loss, d_params))
+        ts.step += 1
+        return ts, {k: v.detach() for k, v in metrics.items()}
 
 
 def make_steps(model, conf):

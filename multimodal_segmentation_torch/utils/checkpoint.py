@@ -5,8 +5,9 @@ torch.save file per epoch under <folder>/checkpoints/, the newest
 MAX_TO_KEEP kept, each written under a temporary name and then renamed,
 so a file that exists is whole. A file holds the whole train state: the
 model's state_dict (parameters, BatchNorm statistics, spectral `u`), the
-SWA average, the state_dict of every optimizer, the state of the step
-noise's generator, and the step and epoch counts. It is not an orbax
+SWA average, the state_dict of every optimizer (MMSDNet's Z-regressor
+Adam among them), the state of the step noise's generator, and the step
+and epoch counts. It is not an orbax
 checkpoint, and the JAX package cannot read it.
 
 The component export writes <folder>/<component>.npz with the component's
@@ -59,6 +60,7 @@ class CheckpointManager:
             "swa": ts.swa,
             "opt_gen": ts.opt_gen.state_dict(),
             "opt_disc": {n: o.state_dict() for n, o in ts.opt_disc.items()},
+            "opt_zreg": None if ts.opt_zreg is None else ts.opt_zreg.state_dict(),
             "generator": ts.generator.get_state(),
             "step": ts.step,
             "epoch": ts.epoch,
@@ -83,6 +85,11 @@ class CheckpointManager:
         ts.opt_gen.load_state_dict(state["opt_gen"])
         for n, opt in ts.opt_disc.items():
             opt.load_state_dict(state["opt_disc"][n])
+        if (ts.opt_zreg is None) != (state.get("opt_zreg") is None):
+            raise ValueError("%s: the checkpoint's Z-regressor Adam does not match the "
+                             "train state's" % self._path(epoch))
+        if ts.opt_zreg is not None:
+            ts.opt_zreg.load_state_dict(state["opt_zreg"])
         ts.generator.set_state(state["generator"])
         ts.step = state["step"]
         ts.epoch = state["epoch"]

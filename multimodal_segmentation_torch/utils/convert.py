@@ -1,8 +1,8 @@
 """Weights of the JAX package <-> the port's state_dicts.
 
 Takes nested dicts of arrays (a component's `params`, its `batch_stats`
-and its `spectral` collection, as the JAX package's DAFNet.init returns
-them) and needs no JAX. Flax paths map onto the port's module names,
+and its `spectral` collection, as the JAX package's DAFNet.init and
+MMSDNet.init return them) and needs no JAX. Flax paths map onto the port's module names,
 which carry the Flax auto-names:
 
   down1/ConvBlock_0/Conv_0/kernel            -> down1.ConvBlock_0.Conv_0.weight
@@ -31,6 +31,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+# DAFNet's components; MMSDNet's are its model's children
 COMPONENTS = ("enc_anatomy", "fuser", "enc_modality", "segmentor", "decoder",
               "balancer", "d_mask", "d_image1", "d_image2")
 
@@ -144,12 +145,12 @@ def from_flax_paths(flat):
 
 
 def load_jax_weights(model, params, state):
-    """Load the JAX package's DAFNet (params, state) into the port's
-    DAFNet, every component present in `params`, strictly by name and
-    shape."""
+    """Load the JAX package's DAFNet or MMSDNet (params, state) into the
+    port's model of that kind, every component present in `params`,
+    strictly by name and shape."""
     cols = {c: state.get(c, {}) for c in ("batch_stats", "spectral")}
-    for name in COMPONENTS:
+    for name, module in model.named_children():
         if name in params:
-            getattr(model, name).load_state_dict(component_state_dict(
+            module.load_state_dict(component_state_dict(
                 params[name], cols["batch_stats"].get(name), cols["spectral"].get(name)))
     return model

@@ -9,7 +9,7 @@ with the z_means_* / z_vars_* CSVs; training/ epoch grids. The PNGs need
 matplotlib or PIL; where one is missing its PNGs are skipped, as in the
 JAX package, and the log says so once. The CSVs are always written.
 
-The callback calls the DAFNet components directly (NCHW inside, NHWC at
+The callback calls the model's components directly (NCHW inside, NHWC at
 predict_mask). The JAX noise keys PRNGKey(k) become torch.Generators
 seeded with k; the draws differ from JAX's.
 """
@@ -116,9 +116,10 @@ def _nhwc(t):
 
 class TrainingImageCallback:
     """Per-epoch qualitative diagnostics of the disentanglement
-    (callbacks/dafnet_image_callback.py:19-282) for DAFNet. It shows the
-    weights the model holds when it is called; the executor swaps the SWA
-    average in, as the JAX package passes params_for_eval."""
+    (callbacks/dafnet_image_callback.py:19-282) for DAFNet and MMSDNet. It
+    shows the weights the model holds when it is called; the executor
+    swaps its eval weights in (DAFNet's SWA average, MMSDNet's live
+    weights), as the JAX package passes params_for_eval."""
 
     def __init__(self, folder, model, sample_batch, device):
         self.folder = os.path.join(folder, "training_images")
@@ -141,7 +142,9 @@ class TrainingImageCallback:
         self.model.eval()
         x1 = self._tensor(self.batch["x1"][:2])
         x2 = self._tensor(self.batch["x2"][:2])
-        s1, s2 = self.model.enc_anatomy(x1.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2))
+        # DAFNet's dual encoder, or MMSDNet's two private ones
+        # (observability.py:114-121)
+        s1, s2 = self.model.encode_anatomies(x1.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2))
         self._plot_segmentations(epoch, x1, x2)
         self._plot_latent_representation(epoch, x1, x2, s1, s2)
         self._plot_reconstructions(epoch, x1, x2, s1, s2)
@@ -242,6 +245,9 @@ class TrainingImageCallback:
         plt.savefig(os.path.join(self.folder, "discriminator_epoch_%03d.png" % epoch))
         plt.close(fig)
 
+        # the image discriminators: DAFNet only
+        if not hasattr(model, "d_image1"):
+            return
         num_z = model.conf.num_z
         fig = plt.figure()
         for j, (disc, x, s, seed) in enumerate(((model.d_image1, x1, s1, 3),

@@ -454,14 +454,20 @@ def test_early_stop_swaps_in_swa_and_checkpoints_the_next_epoch(tmp_path):
 
 
 def test_unported_executors_and_cuda_default_raise(tmp_path):
+    """The automated-pairing and the MMSDNet executors build on the CPU
+    (they raised until they were ported); the cardiac3d model still
+    raises; without a card the default device raises."""
     _, conf = _confs(tmp_path)
     model = build_model(conf, device="cpu")
     conf.automatedpairing = True
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_executor(conf, model, device="cpu")
+    ex = make_executor(conf, model, device="cpu")
+    assert isinstance(ex, DAFNetExecutor) and ex.steps.conf.automatedpairing
     conf.automatedpairing, conf.model = False, "mmsdnet"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_executor(conf, model, device="cpu")
+    ex = make_executor(conf, build_model(conf, device="cpu"), device="cpu")
+    assert type(ex).__name__ == "MMSDNetExecutor" and type(ex.steps).__name__ == "MMSDNetSteps"
+    conf.model = "cardiac3d"
+    with pytest.raises(ValueError, match="cardiac3d"):
+        build_model(conf, device="cpu")
     conf.model = "dafnet"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -13,11 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_segmentation_torch.config import dafnet_chaos, tiny_test_config
+from multimodal_segmentation_torch.config import dafnet_chaos, mmsdnet_chaos, tiny_test_config
 from multimodal_segmentation_torch.models import build_model
 from multimodal_segmentation_torch.ops import augment, cuda_kernels, tps
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
-from multimodal_segmentation_torch.train import DAFNetSteps, create_train_state
+from multimodal_segmentation_torch.train import (
+    DAFNetSteps,
+    create_train_state,
+    draw_mmsdnet_disc_noise,
+    draw_mmsdnet_noise,
+    draw_noise,
+    make_steps,
+)
 from torch_warp_reference import offsets_gradient_reference
 
 pytestmark = pytest.mark.gpu
@@ -437,7 +444,8 @@ def _tie_angles(device, n):
     return torch.tensor((found * n)[:n], dtype=torch.float32, device=device)
 
 
-GROUPS = ([1, 1, 4, 4], [1, 1, 4], [4, 4], [1, 1], [3], [2, 5, 1, 7])
+# the step's groups (automated pairing's 3 + 3 + 4 + 4 among them) and odd ones
+GROUPS = ([1, 1, 4, 4], [3, 3, 4, 4], [1, 1, 4], [4, 4], [1, 1], [3], [2, 5, 1, 7])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -785,3 +793,144 @@ def test_eval_dtype_bf16_predict_mask_on_the_card_matches_cpu(cuda):
     print("argmax differs, card vs CPU and bf16 vs f32 on the card: %s" % shares)
     for fusion, (device_share, dtype_share) in shares.items():
         assert device_share <= max(1e-3, dtype_share), (fusion, device_share, dtype_share)
+
+
+# ------------------------------------------- automated pairing and MMSDNet
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernels_at_the_automated_shape(cuda, dtype):
+    """B1 and B2 at B = 36, automated pairing's 2K = 6 fusion directions of
+    batch 6: the forward within 2e-4 (f32) or 2e-2 (bf16) of its plain
+    version; the backward at the training shape's f32 bounds, or 3e-2 of
+    the largest entry in bf16."""
+    got, ref = _kernel_and_plain(*_inputs(cuda, B=36, H=192, W=192, C=8, dtype=dtype))
+    assert got.dtype == dtype and got.shape == (36, 192, 192, 8)
+    assert (got.float() - ref.float()).abs().max().item() <= (
+        2e-4 if dtype == torch.float32 else 2e-2)
+    vol, locs, g = _bwd_inputs(cuda, B=36, H=192, W=192, C=8, dtype=dtype)
+    gv, gl = cuda_kernels.tps_warp_bwd(vol, locs, g)
+    rv, rl = tps._tps_warp_bwd_plain(vol, locs, g)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(gl, rl, atol=5e-5, rtol=1e-4)
+        assert (gv - rv).abs().max().item() <= 1e-5 * rv.abs().max().item()
+    else:
+        assert (gv.float() - rv.float()).abs().max().item() <= 3e-2
+        assert (gl - rl).abs().max().item() / (rl.abs().max().item() + 1e-6) <= 3e-2
+
+
+def _auto_batch(conf, seed=0):
+    """An automated batch: n_pairs candidate slices a modality."""
+    b = _expert_batch(conf, seed)
+    r = np.random.RandomState(seed + 50)
+    shape = (conf.batch_size,) + tuple(conf.input_hw) + (conf.n_pairs,)
+    for k in ("x1", "x2"):
+        b[k + "_pairs"] = (r.rand(*shape) * 2 - 1).astype(np.float32)
+        del b[k]
+    return b
+
+
+def _mmsdnet_batches(conf, seed=0):
+    """(generator batch, discriminator batch) of MMSDNet."""
+    b = _expert_batch(conf, seed)
+    return ({k: b[k] for k in ("x1", "x2", "m1", "m2")},
+            {"dm": b["dm1"], "dx1": b["dx1"], "dx2": b["dx2"]})
+
+
+def test_full_width_automated_step_runs_through_the_kernels(cuda, monkeypatch):
+    """One dafnet_chaos step_supervised under automated pairing (n_pairs 3,
+    batch 6, 192x192): finite metrics, launches 2/1/3/2, the loss's warp at
+    B = 36 and the fake pools' at 12, and the balancer moves."""
+    conf = dafnet_chaos()
+    conf.automatedpairing = True
+    model = build_model(conf, device="cuda")
+    with torch.no_grad():
+        model.fuser.locnet.Dense_1.weight.normal_(0.0, 1e-2)
+        model.enc_anatomy.conv_anatomy.weight.mul_(5.0)
+    ts = create_train_state(model, conf)
+    batches = []
+    warp = tps.tps_warp_fwd
+    monkeypatch.setattr(tps, "tps_warp_fwd",
+                        lambda vol, *a: batches.append(vol.shape[0]) or warp(vol, *a))
+    bal = [p.clone() for p in model.balancer.parameters()]
+    cuda_kernels.reset_launch_counts()
+    ts, metrics = DAFNetSteps(model, conf).step_supervised(ts, _auto_batch(conf))
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
+                                            "nearest_warp": 3, "round_ste": 2,
+                                            "tps_flow_dbg": 0}
+    assert batches == [36, 12]
+    assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
+    assert any(not torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_width_mmsdnet_steps_run_through_the_kernels(cuda, dtype):
+    """One mmsdnet_chaos step_supervised (with its Z-regressor update) and
+    one step_discriminator at batch 6, 192x192: finite f32 metrics and
+    launches 3/1/3/6 (B1: the loss's two fusion directions, the
+    Z-regressor's two in one call, the pool's one; B4: two private heads in
+    the loss, the Z-regressor and the pool)."""
+    conf = mmsdnet_chaos()
+    conf.compute_dtype = dtype
+    model = build_model(conf, device="cuda")
+    with torch.no_grad():
+        model.fuser.locnet.Dense_1.weight.normal_(0.0, 1e-2)
+    ts = create_train_state(model, conf)
+    steps = make_steps(model, conf)
+    gen, disc = _mmsdnet_batches(conf)
+    cuda_kernels.reset_launch_counts()
+    ts, metrics = steps.step_supervised(ts, gen)
+    ts, d_metrics = steps.step_discriminator(ts, disc)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 3, "tps_warp_bwd": 1,
+                                            "nearest_warp": 3, "round_ste": 6,
+                                            "tps_flow_dbg": 0}
+    metrics.update(d_metrics)
+    assert sorted(metrics) == ["KL", "adv_M", "dis_M", "loss", "rec_X", "rec_Z",
+                               "supervised_Mask"]
+    assert all(v.dtype == torch.float32 and torch.isfinite(v).item()
+               for v in metrics.values()), metrics
+    assert ts.step == 2
+
+
+@pytest.mark.parametrize("path", ["automated", "mmsdnet"])
+def test_tiny_new_path_step_on_the_card_matches_cpu(cuda, path):
+    """One tiny step of each new path on the card and on the CPU, from the
+    same weights, batch and noise (the existing cross-device bounds):
+    generator metrics, computed before any update, within 1e-3 relative;
+    what reads the updated generator (the discriminators' losses and
+    MMSDNet's Z-regressor loss) within 2e-2, since a conv bias ahead of a
+    BatchNorm has a roundoff gradient whose Adam step takes either sign.
+    The anatomy heads are sharpened (x100, the cross-device phase's 5 x 20)
+    against rounding ties."""
+    conf = tiny_test_config("mmsdnet" if path == "mmsdnet" else "dafnet")
+    conf.automatedpairing = path == "automated"
+    model = build_model(conf, device="cuda")
+    with torch.no_grad():
+        model.fuser.locnet.Dense_1.weight.normal_(0.0, 1e-2)
+        for name, m in model.named_modules():
+            if name.endswith("conv_anatomy"):
+                m.weight.mul_(100.0)
+    cpu_model = build_model(conf, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    gen = torch.Generator().manual_seed(3)
+    B, nz, rr = conf.batch_size, conf.num_z, conf.rotation_range
+    out = {}
+    if path == "automated":
+        batch, noise = _auto_batch(conf), draw_noise(gen, B, nz, rr)
+        for name, m in (("card", model), ("cpu", cpu_model)):
+            out[name] = DAFNetSteps(m, conf).step_supervised(create_train_state(m, conf),
+                                                             batch, noise)[1]
+    else:
+        (g_batch, d_batch) = _mmsdnet_batches(conf)
+        g_noise, d_noise = draw_mmsdnet_noise(gen, B, nz, rr), draw_mmsdnet_disc_noise(gen, B, rr)
+        for name, m in (("card", model), ("cpu", cpu_model)):
+            ts, steps = create_train_state(m, conf), make_steps(m, conf)
+            ts, metrics = steps.step_supervised(ts, g_batch, g_noise)
+            out[name] = {**metrics, **steps.step_discriminator(ts, d_batch, d_noise)[1]}
+    assert sorted(out["card"]) == sorted(out["cpu"])
+    for k, v in out["cpu"].items():
+        lim = 2e-2 if k.startswith("dis_") or k == "rec_Z" else 1e-3
+        rel = abs(float(out["card"][k]) / float(v) - 1.0)
+        assert rel <= lim, (k, rel)

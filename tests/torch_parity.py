@@ -60,8 +60,27 @@ def jax_dafnet(conf, seed=0, jit_init=False):
     return model, params, state
 
 
+def jax_mmsdnet(conf, seed=0):
+    """(jax model, params, state) of MMSDNet with the seeded changes above
+    (both private anatomy heads sharpened); numpy leaves. The init is
+    compiled."""
+    model = build_jax_model(conf)
+    params, state = jax.jit(model.init)(jax.random.PRNGKey(seed))
+    params = jax.tree_util.tree_map(np.array, params)
+    state = dict(jax.tree_util.tree_map(np.array, state))
+    rng = np.random.RandomState(seed)
+    state["batch_stats"] = seeded_batch_stats(state["batch_stats"], rng)
+    for name in ("enc_anatomy1", "enc_anatomy2"):
+        params[name]["conv_anatomy"]["kernel"] *= ANATOMY_GAIN
+    dense1 = params["fuser"]["locnet"]["Dense_1"]
+    dense1["kernel"] = rng.normal(0.0, DENSE1_STD, dense1["kernel"].shape).astype(np.float32)
+    dense1["bias"] = rng.normal(0.0, DENSE1_STD, dense1["bias"].shape).astype(np.float32)
+    return model, params, state
+
+
 def torch_dafnet(conf, params, state):
-    """The port's DAFNet on the CPU, holding the JAX weights."""
+    """The port's model of conf.model (DAFNet or MMSDNet) on the CPU,
+    holding the JAX weights."""
     return load_jax_weights(build_torch_model(conf, device="cpu"), params, state)
 
 
@@ -121,14 +140,17 @@ def bf16_gap_check(got_bf16, got_f32, ref_bf16, ref_f32):
 
 
 def tie_guard(model, margin):
-    """Record every anatomy softmax value the port rounds; `check()`
-    asserts none lies within `margin` of 0.5."""
+    """Record every anatomy softmax value the port rounds (every anatomy
+    head of the model); `check()` asserts none lies within `margin` of
+    0.5."""
     seen = []
-    hook = model.enc_anatomy.conv_anatomy.register_forward_hook(
+    hooks = [m.register_forward_hook(
         lambda m, i, o: seen.append(float((torch.softmax(o.detach().float(), 1) - 0.5).abs().min())))
+        for n, m in model.named_modules() if n.endswith("conv_anatomy")]
 
     def check():
-        hook.remove()
+        for hook in hooks:
+            hook.remove()
         assert seen and min(seen) > margin, "an anatomy value lies %.2e from 0.5" % min(seen)
 
     return check
