@@ -27,7 +27,11 @@ Phases, one JSON line each:
                 of each part of a wrapper's launch; `flow`: tps_flow_dbg
                 at the tool's shape and at B1's, the stages check of B1
                 against a plain blend at its locations, the gap to
-                tps_sample_locations, B5's share of B1's device time)
+                tps_sample_locations, B5's share of B1's device time;
+                `nearest_warp_3d`: B3's nearest_warp entry at the 3-D
+                step's (32, 128, 128, 3) f32, volumes and masks, against
+                its plain gather and grid_sample nearest, the card's
+                rotation against the CPU's, and the step's two rotations)
   debug-warp    the warp-bisect tool (multimodal_segmentation_torch.tools.
                 debug_warp_kernel) on the card: its five max differences
                 and the kernel launches of that run
@@ -93,6 +97,19 @@ Phases, one JSON line each:
                 the CLI (one epoch of CHAOS_STEPS batches at l_mix 0.5, no
                 --dataset) and `--test`: ingest seconds, slices per split,
                 the epoch's parts, launches, Dice per fusion type
+  train-3d      Cardiac3DSegmenter.step at full cardiac_3d width (batch 2,
+                (16, 128, 128, 3), widths 16-128), f32 and bf16, on the
+                cardiac loader's split-0 training studies: losses, ms per
+                step, studies/s, exactly 2 nearest_warp launches a step and
+                no other kernel, peak memory, every parameter moved, the
+                rotated masks {0,1}, a profiler window by kind
+  train-3d-cross-device
+                one tiny 3-D step on the card and on the CPU, same weights,
+                batch and angles: the loss and every gradient leaf within
+                1e-3 (the CPU on the card's ReLU branch at kinks)
+  experiment-3d the CLI on cardiac_3d_config, 2 epochs, then --test: seconds
+                per epoch, validation and test Dice, the artifacts, the
+                restored Dice within 1e-6, launches
 
 Then nvidia-smi's name/power line, the kernels summary and, last, the result
 line. Any failed check raises, and the script exits non-zero without a
@@ -111,6 +128,7 @@ result line; so it does without a CUDA device, or outside the repository.
 
 import argparse
 import csv
+import dataclasses
 import itertools
 import json
 import math
@@ -153,6 +171,11 @@ CHAOS_ROOT = os.path.join(OUT_DIR, "chaos", "MR")
 CHAOS_STEPS = 4
 # experiment-paths phase: batches of its one epoch
 PATHS_STEPS = 2
+# train-3d phase: timed steps (after TRAIN_WARMUP) and the profiled ones
+TRAIN3D_STEPS = 12
+TRAIN3D_PROFILE_STEPS = 3
+# experiment-3d phase: epochs of the CLI run (the preset's are 100)
+EXP3D_EPOCHS = 2
 # balancer-order phase (tiny): epochs and batches an epoch of the JAX
 # package's learning check (tests/test_executor_variants.py:227-259)
 BALANCER_EPOCHS = 6
@@ -782,6 +805,82 @@ def rotation_auto_phase(torch, dev):
                   2 * nbytes, B * H * W * 26)
     return {"group": [list(a) for a in AUTO_ROTATION_GROUP], "shape": [B, H, W],
             "bit_exact": True, "groups_checked": checked, "max_abs_err": 0.0, **out}
+
+
+# the volumetric step's rotation: B = 2 studies of D = 16 slices, 128x128,
+# 3 sequences (cardiac_3d), one angle a study
+VOLUME_ROTATION_ANGLES_DEG = (12.3, -7.9)
+
+
+def nearest_warp_3d_phase(torch, dev):
+    """The nearest_warp entry at the volumetric step's shape: rotate_batch
+    on (B*D, 128, 128, 3) = (32, 128, 128, 3) f32, once for the volumes
+    and once for the {0,1} masks (ops/augment.py::random_rotate_volumes).
+
+    Checks, bit for bit: nearest_warp against its plain gather at the
+    step's locations, for volumes and masks (the masks stay {0,1}); the
+    whole random_rotate_volumes on the card against the same call on the
+    CPU; rotation_locations on the card against the CPU's at angles whose
+    sin or cos is exactly 0.5 (tie_angles) on a 33x33 image, so no .5 tie
+    rounds another way. Timed, each array kind: one launch at given
+    locations against its plain version and grid_sample nearest on a
+    channels-first copy made beforehand; and the step's whole rotation
+    (two rotate_batch calls with their locations)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch.ops import augment
+    from multimodal_segmentation_torch.ops import cuda_kernels as ck
+
+    B, D, H, W, C = 2, 16, 128, 128, 3
+    r = np.random.RandomState(6)
+    th = torch.from_numpy(np.radians(np.array(VOLUME_ROTATION_ANGLES_DEG, np.float32))).to(dev)
+    locs = augment.rotation_locations(th.repeat_interleave(D), H, W)
+    vols = torch.from_numpy((r.rand(B, D, H, W, C) * 2 - 1).astype(np.float32)).to(dev)
+    msks = torch.from_numpy((r.rand(B, D, H, W, C) > 0.7).astype(np.float32)).to(dev)
+    out = {"shape": [B * D, H, W, C], "angles_deg": list(VOLUME_ROTATION_ANGLES_DEG)}
+    err = {}
+    for name, x in (("volumes", vols), ("masks", msks)):
+        flat = x.reshape(B * D, H, W, C)
+        got = ck.nearest_warp(flat, locs)
+        ref = augment._nearest_warp_plain(flat, locs)
+        torch.cuda.synchronize()
+        err[name] = (got - ref).abs().max().item()
+        check(torch.equal(got, ref), "nearest_warp (32, 128, 128, 3) %s differs" % name)
+    rv, rm = augment.random_rotate_volumes(th, vols, msks)
+    cv, cm = augment.random_rotate_volumes(th.cpu(), vols.cpu(), msks.cpu())
+    check(torch.equal(rv.cpu(), cv) and torch.equal(rm.cpu(), cm),
+          "random_rotate_volumes on the card differs from the CPU")
+    check(set(rm.unique().tolist()) <= {0.0, 1.0}, "rotated masks are not {0,1}")
+    ties = tie_angles(torch, dev, 4)
+    on_card = augment.rotation_locations(ties, 33, 33)
+    on_cpu = augment.rotation_locations(ties.cpu(), 33, 33)
+    out["tie_locations"] = int(((on_cpu - on_cpu.floor()) == 0.5).sum())
+    out["tie_locations_differing_from_cpu"] = int((on_card.cpu() != on_cpu).sum())
+    check(out["tie_locations"] > 0, "the tie angles gave no .5 location")
+    check(out["tie_locations_differing_from_cpu"] == 0,
+          "rotation_locations on the card differ from the CPU's at tie angles")
+    out.update(bit_exact=True, max_abs_err=max(err.values()))
+
+    nbytes = vols.numel() * 4
+    grid = grid_of(torch, locs, H, W)
+    # bound: vol and locs read once, the output written once; ~10
+    # operations a point (round, clamp, index)
+    work = (2 * nbytes + locs.numel() * 4, B * D * H * W * 10)
+    for name, x in (("volumes", vols), ("masks", msks)):
+        bufs = rotating(lambda: x.reshape(B * D, H, W, C).clone(), nbytes)
+        cf = {id(buf): buf.permute(0, 3, 1, 2).contiguous() for buf in bufs}
+        out[name] = {"max_abs_err": err[name], **measure(
+            bufs, lambda buf: ck.nearest_warp(buf, locs),
+            lambda buf: augment._nearest_warp_plain(buf, locs),
+            lambda buf: F.grid_sample(cf[id(buf)], grid, mode="nearest",
+                                      padding_mode="border", align_corners=True),
+            *work)}
+    pairs = rotating(lambda: (vols.clone(), msks.clone()), 2 * nbytes)
+    it = itertools.cycle(pairs)
+    step = lambda: augment.random_rotate_volumes(th, *next(it))  # noqa: E731
+    out["step_rotation"] = {"ms": time_ms(step)[0], "device_ms": device_ms(step)}
+    return out
 
 
 def round_ste_phase(torch, dev):
@@ -1773,6 +1872,247 @@ def experiment_phase(torch, device, preset):
     return out
 
 
+def tiny_3d():
+    """cardiac_3d at the JAX tests' tiny size (tests/test_volumetric.py)."""
+    from multimodal_segmentation_torch import config
+
+    return dataclasses.replace(config.cardiac_3d(), volume_shape=(8, 32, 32, 3),
+                               filters3d=4, downsample3d=2)
+
+
+def _cardiac_batches(torch, conf, device):
+    """The cardiac loader's split-0 training studies on `device` and an
+    endless iterator over batches of conf.batch_size in the order of
+    np.random.RandomState(conf.seed) permutations, the tail dropped."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.data import init_loader
+
+    xs, ys = init_loader("cardiac", shape=conf.volume_shape[:3]).load_volumes(0, "training")
+    xs, ys = torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device)
+    rng, B = np.random.RandomState(conf.seed), conf.batch_size
+
+    def batches():
+        while True:
+            order = rng.permutation(xs.shape[0])
+            for i in range(0, (xs.shape[0] // B) * B, B):
+                idx = torch.from_numpy(order[i:i + B]).to(device)
+                yield xs[idx], ys[idx]
+    return xs.shape[0], batches()
+
+
+def train3d_phase(torch, conf, device, warmup, steps, profile=0):
+    """Cardiac3DSegmenter.step at `conf` on the split-0 training studies:
+    `warmup` then `steps` timed steps (each with its own angles from the
+    segmenter's generator): every loss finite, ms per step, studies/s,
+    launches (exactly 2 nearest_warp a step and no other kernel on the
+    card), peak memory, every parameter moved; then the rotation of one
+    more batch keeps the masks {0,1}; then, on the card with `profile`,
+    a torch.profiler window over that many steps (device time by kind)."""
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.ops import augment, cuda_kernels
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    n_studies, batches = _cardiac_batches(torch, conf, device)
+    model = Cardiac3DSegmenter(conf, device=device)
+    params, opt = model.init(conf.seed)
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    setup_s = time.perf_counter() - t0
+
+    losses, times = [], []
+    for i in range(warmup + steps):
+        vb, mb = next(batches)
+        if i == warmup:
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            cuda_kernels.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        params, opt, loss = model.step(params, opt, vb, mb)
+        sync()
+        dt = time.perf_counter() - t
+        losses.append(loss.item())
+        check(math.isfinite(losses[-1]), "3-D loss not finite at step %d" % i)
+        if i >= warmup:
+            times.append(dt)
+    launches = cuda_kernels.launch_counts()
+    if on_card:
+        want = {k: 2 * steps if k == "nearest_warp" else 0 for k in KERNEL_NAMES}
+        check(launches == want, "train-3d launches %s != %s" % (launches, want))
+    moved = {n: (p.detach() - before[n]).abs().max().item() for n, p in params.named_parameters()}
+    check(all(v > 0 for v in moved.values()),
+          "parameters did not move: %s" % [n for n, v in moved.items() if v == 0])
+    vb, mb = next(batches)
+    th = augment.random_rotation_angles(model.generator, vb.shape[0], conf.rotation_range)
+    rv, rm = augment.random_rotate_volumes(th, vb, mb)
+    check(set(rm.unique().tolist()) <= {0.0, 1.0} and not torch.equal(rv, vb),
+          "the rotated masks are not {0,1}, or nothing rotated")
+    ms = sorted(1e3 * t for t in times)
+    p50 = ms[len(ms) // 2]
+    out = {
+        "config": conf.folder, "device": str(device), "batch": conf.batch_size,
+        "volume": list(conf.volume_shape), "filters3d": conf.filters3d,
+        "downsample3d": conf.downsample3d, "compute_dtype": conf.compute_dtype,
+        "training_studies": n_studies, "setup_s": setup_s, "warmup_steps": warmup,
+        "timed_steps": steps, "losses": losses, "ms_per_step": [1e3 * t for t in times],
+        "p50_ms_per_step": p50, "ms_per_step_range": [ms[0], ms[-1]],
+        "studies_per_s": conf.batch_size / (p50 / 1e3), "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "parameters": len(moved), "min_param_change": min(moved.values()),
+    }
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if on_card and profile:
+        def run():
+            nonlocal params, opt
+            params, opt, _ = model.step(params, opt, *next(batches))
+        out["profile"] = profile_steps(torch, run, profile)
+    return out
+
+
+def step_grads_3d(torch, conf, device, vb, mb, th, kinks=None):
+    """One Cardiac3DSegmenter.step at `conf` on `device` from init(conf.seed)
+    with the given batch and angles: (loss, {parameter: gradient on the
+    CPU}, {InstanceNorm3D: output}, kinks taken). With `kinks` (another
+    run's norm outputs) every norm output whose sign differs from that
+    run's, a value within roundoff of 0 where the ReLU after it has its
+    kink, takes that run's value (its gradient path kept), so both runs
+    take the same ReLU branch there."""
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.nn.unet3d import InstanceNorm3D
+
+    model = Cardiac3DSegmenter(conf, device=device)
+    params, opt = model.init(conf.seed)
+    outs, taken = {}, [0]
+
+    def hook(name):
+        def f(m, i, o):
+            outs[name] = o.detach().cpu()
+            if kinks is None:
+                return None
+            ref = kinks[name].to(o.device)
+            flip = (o > 0) != (ref > 0)
+            taken[0] += int(flip.sum())
+            return o + ((ref - o) * flip).detach()
+        return f
+    handles = [m.register_forward_hook(hook(n)) for n, m in params.named_modules()
+               if isinstance(m, InstanceNorm3D)]
+    try:
+        _, _, loss = model.step(params, opt, vb.to(device), mb.to(device), th)
+    finally:
+        for h in handles:
+            h.remove()
+    return (loss.item(), {n: p.grad.float().cpu() for n, p in params.named_parameters()},
+            outs, taken[0])
+
+
+def train3d_cross_device_phase(torch, device):
+    """One Cardiac3DSegmenter.step at the tiny 3-D config (rotation 15) on
+    `device` and on the CPU, from the same weights, batch and angles: the
+    rotated batch equal, the loss and every gradient leaf within 1e-3
+    relative (a leaf's largest difference over its largest entry), except
+    the zero-gradient biases (every conv bias ahead of an InstanceNorm3D:
+    roundoff of either sign on either device), which are only reported.
+    A pre-activation within roundoff of 0 can take the other ReLU branch
+    on the other device and move a gradient by ~1e-2 (one did on the H100
+    in f32: 1.06e-6 on the card, -8.5e-7 on the CPU); the CPU run takes
+    the card's branch at such kinks (step_grads_3d) and their count is
+    reported."""
+    from multimodal_segmentation_torch.ops import augment
+
+    conf = tiny_3d()
+    _, batches = _cardiac_batches(torch, conf, device)
+    vb, mb = next(batches)
+    th = augment.random_rotation_angles(torch.Generator().manual_seed(conf.seed),
+                                        conf.batch_size, conf.rotation_range)
+    rotated = [augment.random_rotate_volumes(th.to(d), vb.to(d), mb.to(d)) for d in (device, "cpu")]
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(*rotated)),
+          "the 3-D rotation differs between %s and the CPU" % device)
+    exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c)
+              for b in range(2 * conf.downsample3d + 1) for c in (0, 1)}
+    loss_d, g_d, outs, _ = step_grads_3d(torch, conf, device, vb, mb, th)
+    loss_c, g_c, _, kinks = step_grads_3d(torch, conf, "cpu", vb, mb, th, outs)
+    rel = {n: ((g_d[n] - g_c[n]).abs().max() / g_c[n].abs().max()).item() for n in g_c}
+    loss_rel = abs(loss_d / loss_c - 1.0)
+    check(loss_rel <= 1e-3, "3-D cross-device loss differs by %.3g" % loss_rel)
+    bad = {n: v for n, v in rel.items() if n not in exempt and not v <= 1e-3}
+    check(not bad, "3-D cross-device gradients differ: %s" % bad)
+    return {"config": "tiny_3d", "device": str(device), "loss": {"device": loss_d, "cpu": loss_c},
+            "loss_rel_diff": loss_rel, "relu_kinks_aligned": kinks,
+            "max_grad_rel_diff": max(v for n, v in rel.items() if n not in exempt),
+            "zero_gradient_biases_rel_diff": {n: rel[n] for n in sorted(exempt)}}
+
+
+def experiment3d_phase(torch, device, preset, **overrides):
+    """The volumetric CLI: `--config <preset> --split 0 --epochs
+    EXP3D_EPOCHS` (the preset has 100), then `--test` on the same folder,
+    in chip_smoke_out/experiment_3d/. Checks: training.csv (an epoch a row,
+    finite), models/cardiac3d.npz and test_results_cardiac/results.csv
+    exist, the restored `--test` Dice within 1e-6 of the run's, and on the
+    card the launches: 2 nearest_warp a step in training, none in the
+    tests. Reports seconds per epoch (training, validation), the
+    validation and test Dice."""
+    from multimodal_segmentation_torch import experiment
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.ops import cuda_kernels
+
+    on_card = device == "cuda"
+    work = os.path.join(OUT_DIR, "experiment_3d")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    flags = ["--config", preset, "--split", "0", "--epochs", str(EXP3D_EPOCHS), "--device", device]
+    step = Cardiac3DSegmenter.step
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return step(*a, **k)
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        Cardiac3DSegmenter.step = counted
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ex = experiment.Experiment().run(flags, **overrides)
+        run_s = time.perf_counter() - t0
+        launches = cuda_kernels.launch_counts()
+        folder = os.path.join(work, ex.conf.folder)
+        with open(os.path.join(folder, "training.csv")) as f:
+            rows = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+        check(len(rows) == EXP3D_EPOCHS and all(math.isfinite(v) for r in rows for v in r.values()),
+              "experiment-3d training.csv %s" % rows)
+        for name in ("models/cardiac3d.npz", "test_results_cardiac/results.csv"):
+            check(os.path.exists(os.path.join(folder, name)), "experiment-3d: no %s" % name)
+        dice, n_test = _mean_dice(os.path.join(folder, "test_results_cardiac"))
+        cuda_kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        experiment.Experiment().run(flags + ["--test"], **overrides)
+        test_s = time.perf_counter() - t0
+        test_launches = cuda_kernels.launch_counts()
+        restored, _ = _mean_dice(os.path.join(folder, "test_results_cardiac"))
+    finally:
+        Cardiac3DSegmenter.step = step
+        os.chdir(cwd)
+    check(abs(restored - dice) <= 1e-6, "--test Dice %r != %r" % (restored, dice))
+    if on_card:
+        want = {k: 2 * calls[0] if k == "nearest_warp" else 0 for k in KERNEL_NAMES}
+        check(launches == want, "experiment-3d launches %s != %s" % (launches, want))
+        check(not any(test_launches.values()), "--test launched %s" % test_launches)
+    out = {"config": ex.conf.folder, "volume": list(ex.conf.volume_shape),
+           "epochs": EXP3D_EPOCHS, "steps": calls[0], "run_s": run_s, "test_s": test_s,
+           "epoch_seconds": ex.epoch_seconds, "training_log": rows, "test_dice": dice,
+           "test_dice_restored": restored, "test_studies": n_test,
+           "launches": launches, "test_launches": test_launches}
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    return out
+
+
 def _kernel_kind(name):
     n = name.lower()
     if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste",
@@ -1793,20 +2133,28 @@ def _kernel_kind(name):
 
 
 def train_profile_phase(torch, conf, device, warmup=2, steps=3):
-    """torch.profiler over `steps` step_supervised calls (after `warmup`):
-    device time by kernel and by kind, and the share of the window the
-    device was busy."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """profile_steps over `steps` step_supervised calls (after `warmup`)."""
     _, ts, step, batches = _train_setup(torch, conf, device)
     for _ in range(warmup):
         ts, _ = step(ts, next(batches))
-    feed = [next(batches) for _ in range(steps)]
+    feed = iter([next(batches) for _ in range(steps)])
+
+    def run():
+        nonlocal ts
+        ts, _ = step(ts, next(feed))
+    return profile_steps(torch, run, steps)
+
+
+def profile_steps(torch, run, steps):
+    """torch.profiler over `steps` calls of run(): device time by kernel
+    and by kind, and the share of the window the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for batch in feed:
-            ts, _ = step(ts, batch)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
     wall_us = 1e6 * (time.perf_counter() - t0)
     rows = device_rows(prof)
@@ -1880,6 +2228,13 @@ def main(argv=None):
         emit("experiment-paths", **experiment_paths_phase(
             torch, "cpu", (("tiny", "--automatedpairing"), ("tiny_mmsdnet",))))
         emit("balancer-order", **balancer_order_phase(torch, "cpu"))
+        for dtype in ("float32", "bfloat16"):
+            conf = tiny_3d()
+            conf.compute_dtype = dtype
+            emit("train-3d", **train3d_phase(torch, conf, "cpu", 1, 2))
+        emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cpu"))
+        small = {k: getattr(tiny_3d(), k) for k in ("volume_shape", "filters3d", "downsample3d")}
+        emit("experiment-3d", **experiment3d_phase(torch, "cpu", "cardiac_3d_config", **small))
         return 0
 
     if not torch.cuda.is_available():
@@ -1917,6 +2272,7 @@ def main(argv=None):
         "round_ste": round_ste_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
         "flow": flow_phase(torch, dev),
+        "nearest_warp_3d": nearest_warp_3d_phase(torch, dev),
     }
     fwd = kern["tps_warp_fwd"]
     kern["flow"]["share_of_b1_device_ms"] = {
@@ -1981,6 +2337,20 @@ def main(argv=None):
     torch.cuda.empty_cache()
     chaos = chaos_phase(torch, "cuda")
     emit("chaos", card=smi, **chaos)
+    # the volumetric path at full cardiac_3d width
+    train3d = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = config.cardiac_3d()
+        conf.compute_dtype = dtype
+        row = train3d_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN3D_STEPS, TRAIN3D_PROFILE_STEPS)
+        key = "train-3d" + ("-bf16" if dtype == "bfloat16" else "")
+        if dtype == "bfloat16":
+            row["p50_over_f32"] = row["p50_ms_per_step"] / train3d["train-3d"]["p50_ms_per_step"]
+        train3d[key] = row
+        emit("train-3d", card=smi, **row)
+    emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cuda"))
+    exp3d = experiment3d_phase(torch, "cuda", "cardiac_3d_config")
+    emit("experiment-3d", card=smi, **exp3d)
 
     # launches of every path: inference (slice, slice-bf16), the train
     # phases, the lockstep runs, the experiment, the dress rehearsal and
@@ -1993,17 +2363,23 @@ def main(argv=None):
              **{k: v["launches"] for k, v in new_train.items()},
              **{"experiment-" + k: {n: v["launches"][n] + v["test_launches"][n]
                                     for n in v["launches"]} for k, v in paths_exp.items()},
-             "balancer-order": balancer["launches"]}
+             "balancer-order": balancer["launches"],
+             **{k: v["launches"] for k, v in train3d.items()},
+             "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
+                               for n in exp3d["launches"]}}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"
     pallas = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
-    # the shapes this slice's paths give the kernels (automated pairing)
-    slice9 = {
+    # the shapes the later slices' paths give the kernels: automated
+    # pairing (slice 9), the volumetric rotation (slice 10)
+    more_shapes = {
         "tps_warp_fwd": {"B=36 float32": kern["tps_warp_fwd"]["train_auto_float32"],
                          "B=36 bfloat16": kern["tps_warp_fwd"]["train_auto_bfloat16"]},
         "tps_warp_bwd": {"B=36 float32": kern["tps_warp_bwd_auto"]},
-        "nearest_warp": {"3+3+4+4 channels": kern["rotation_auto"]},
+        "nearest_warp": {"3+3+4+4 channels": kern["rotation_auto"],
+                         "(32, 128, 128, 3) float32 volumes": kern["nearest_warp_3d"]["volumes"],
+                         "(32, 128, 128, 3) float32 masks": kern["nearest_warp_3d"]["masks"]},
         "round_ste": {"(36, 8, 192, 192) float32": kern["round_ste"]["train_auto_float32"]},
         "tps_flow_dbg": {},
     }
@@ -2039,10 +2415,10 @@ def main(argv=None):
             "library_device_ms": k["library_device_ms"],
             "library_host_ms": k["library_host_ms"],
             "work": work,
-            "slice9_shapes": {case: {f: r[f] for f in ("max_abs_err", "ms", "device_ms",
-                                                       "plain_ms", "bound_ms", "bound_by",
-                                                       "library_ms", "library_device_ms")}
-                              for case, r in slice9[name].items()},
+            "more_shapes": {case: {f: r[f] for f in ("max_abs_err", "ms", "device_ms",
+                                                     "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms", "library_device_ms")}
+                            for case, r in more_shapes[name].items()},
         })
     print(smi)
     print(json.dumps({"kernels": summary}))

@@ -24,9 +24,9 @@
 //                 __fadd_rn), so no FMA contraction moves a location off an
 //                 exact .5 tie and flips its rounding.
 //   nearest_warp  one array, the locations given as (B, H*W, 2) f32 (y, x);
-//                 only ops/augment.py::rotate_batch calls it, and no path
-//                 of the port calls that on the card (the 3-D rotation,
-//                 ROADMAP A10, will feed it).
+//                 ops/augment.py::rotate_batch calls it, twice a step of
+//                 the volumetric path (random_rotate_volumes: volumes and
+//                 masks, (B*D, 128, 128, 3) f32).
 // rintf rounds half to even, as torch.round does (roundf would round half
 // away from zero). fmaxf returns its non-NaN operand, so a NaN location
 // lands on 0.

@@ -3,8 +3,8 @@
 Port of multimodal_segmentation_tpu/data/loader_factory.py. 'chaos'
 resolves to the real DICOM loader when its data folder exists (DATA_CONF,
 MMSEG_TPU_CHAOS_DIR), otherwise to the synthetic CHAOS-shaped fixture with
-the JAX package's warning. The cardiac loader is still to be ported
-(ROADMAP.md, queue A, item 10).
+the JAX package's warning; 'cardiac' to the synthetic multi-sequence
+cardiac volumes (data/cardiac.py).
 """
 
 import logging
@@ -31,7 +31,7 @@ def init_loader(name, **kwargs):
 
         return SyntheticChaosLoader(**kwargs)
     if name == "cardiac":
-        raise NotImplementedError(
-            "the 'cardiac' loader is not ported yet (ROADMAP.md, queue A, item 10)"
-        )
+        from multimodal_segmentation_torch.data.cardiac import CardiacVolumeLoader
+
+        return CardiacVolumeLoader(**kwargs)
     raise ValueError("Unknown loader: %s" % name)

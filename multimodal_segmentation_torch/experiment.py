@@ -11,9 +11,10 @@ Port of multimodal_segmentation_tpu/experiment.py:22-152, the same CLI:
 pairing flags, l_mix, the modalities and the split (experiment.py:46-63),
 experiment_configuration.json with the git hash (experiment.py:69-78) and
 logfile.log (experiment.py:21-29). Presets dafnet_config_chaos (with
-`--automatedpairing` or `--randomise`), dafnet_spade_config_chaos and
-mmsdnet_config_chaos run; the cardiac3d model is not ported yet and
-raises.
+`--automatedpairing` or `--randomise`), dafnet_spade_config_chaos,
+mmsdnet_config_chaos and cardiac_3d_config (the volumetric executor,
+models/volumetric.py: training.csv, models/cardiac3d.npz,
+test_results_cardiac/results.csv) run.
 """
 
 import argparse
@@ -123,9 +124,6 @@ class Experiment:
         (e.g. steps_per_epoch=4)."""
         args = read_console_parameters(argv)
         conf = dataclasses.replace(build_config(args), **overrides)
-        if conf.model == "cardiac3d":
-            raise NotImplementedError(
-                "the volumetric cardiac3d path is not ported yet (ROADMAP.md, queue A, item 10)")
         logfile = init_logging(conf.folder)
         try:
             return self._run(args, conf)
@@ -144,6 +142,15 @@ class Experiment:
         if conf.debug_nans:
             # the debug configuration's NaN guard (SURVEY.md §5.2)
             torch.autograd.set_detect_anomaly(True)
+        if conf.model == "cardiac3d":
+            # the volumetric family (models/volumetric.py)
+            from multimodal_segmentation_torch.models.volumetric import Cardiac3DExecutor
+
+            executor = Cardiac3DExecutor(conf, device=args.device)
+            if not args.test:
+                executor.train()
+            executor.test()
+            return executor
         model = build_model(conf, device=args.device)
         executor = make_executor(conf, model, device=args.device)
         if not args.test:

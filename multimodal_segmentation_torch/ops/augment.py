@@ -15,8 +15,9 @@ per-sample cos/sin, in the f32 operation order of `rotation_locations`
 concatenated, sampled at `rotation_locations` by the plain gather
 (`_nearest_warp_plain`) and split, as the JAX package does.
 `rotate_batch` (one array) samples at `rotation_locations` with the
-nearest_warp kernel on the GPU and the plain gather on the CPU. All of
-them agree bit for bit.
+nearest_warp kernel on the GPU and the plain gather on the CPU; the
+volumetric path's `random_rotate_volumes` calls it twice a step (volumes
+and masks). All of them agree bit for bit.
 """
 
 import math
@@ -116,6 +117,23 @@ def random_rotate_batch(arrays, thetas):
     widths = [a.shape[-1] for a in arrays]
     out = rotate_batch(torch.cat(arrays, dim=-1), thetas)
     return list(torch.split(out, widths, dim=-1))
+
+
+def random_rotate_volumes(thetas, volumes, masks):
+    """In-plane rotation of (B, D, H, W, C) volumes and their masks about
+    the slice axis (ops/augment.py:160-177): one angle per study (thetas,
+    (B,) radians, e.g. from random_rotation_angles), shared by its D
+    slices and its masks. As in the JAX package, the volumes and the masks
+    each go through rotate_batch on (B*D, H, W, C): one nearest_warp
+    launch each on the GPU. Not differentiable."""
+    B, D = volumes.shape[0], volumes.shape[1]
+    th = thetas.repeat_interleave(D)
+
+    def rot(x):
+        flat = x.reshape((B * D,) + tuple(x.shape[2:]))
+        return rotate_batch(flat, th.to(x.dtype)).reshape(x.shape)
+
+    return rot(volumes), rot(masks)
 
 
 def random_brightness_contrast(generator, images, brightness=0.2, contrast=0.2):

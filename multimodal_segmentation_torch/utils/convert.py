@@ -16,14 +16,23 @@ which carry the Flax auto-names:
   d_mask/SpectralConv_0/kernel               -> SpectralConv_0.weight
   d_mask/SpectralConv_0/u (spectral)         -> SpectralConv_0.u
 
-Conv kernels go HWIO -> OIHW, Dense kernels (in, out) -> (out, in); the
-spectral vectors `u` keep the JAX package's HWIO order (ops/spectral.py).
+The volumetric UNet3D (nn/unet3d.py) maps the same way:
+
+  ConvBlock3D_0/Conv_0/kernel                -> ConvBlock3D_0.Conv_0.weight
+  ConvBlock3D_0/InstanceNorm3D_0/scale       -> ConvBlock3D_0.InstanceNorm3D_0.weight
+
+Conv kernels go HWIO -> OIHW (3-D: DHWIO -> OIDHW), Dense kernels (in,
+out) -> (out, in); the spectral vectors `u` keep the JAX package's HWIO
+order (ops/spectral.py).
 `component_trees` maps a state_dict back. For the component .npz files
 (the JAX package's utils/checkpoint.py:50-108), `params_by_component`
 groups model-level parameter names, such as a train state's SWA values,
 into per-component params trees, and `flax_paths` / `from_flax_paths`
 turn a tree into the '/'-joined Flax path strings those files key by and
-back.
+back. The volumetric executor's models/cardiac3d.npz (the JAX package's
+models/volumetric.py:185-191) keys by jax.tree_util's key path of the
+whole variables tree instead, "['params']/['Conv_0']/['kernel']":
+`unet3d_npz` / `unet3d_state_dict_from_npz` write and read those keys.
 """
 
 from collections.abc import Mapping
@@ -71,10 +80,16 @@ def _torch_key(path):
     return ".".join(mods + [_LEAF[path[-1]]])
 
 
+# conv kernel axes: Flax (spatial..., in, out) -> torch (out, in, spatial...)
+_TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FLAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+_NORM_PREFIXES = ("Norm_", "BatchNorm_", "InstanceNorm3D_")
+
+
 def _to_torch(leaf, arr):
     a = np.array(arr, dtype=np.float32)
     if leaf == "kernel":
-        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        a = a.transpose(_TO_TORCH[a.ndim]) if a.ndim in _TO_TORCH else a.T
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
@@ -98,11 +113,11 @@ def component_trees(state_dict):
     for key, t in state_dict.items():
         *mods, leaf = key.split(".")
         a = t.detach().cpu().numpy().astype(np.float32)
-        is_norm = bool(mods) and (mods[-1].startswith("Norm_") or mods[-1].startswith("BatchNorm_"))
+        is_norm = bool(mods) and mods[-1].startswith(_NORM_PREFIXES)
         if leaf == "weight":
             col, jleaf = "params", ("scale" if is_norm else "kernel")
-            if a.ndim == 4:
-                a = a.transpose(2, 3, 1, 0)
+            if a.ndim in _TO_FLAX:
+                a = a.transpose(_TO_FLAX[a.ndim])
             elif a.ndim == 2:
                 a = a.T
         else:
@@ -142,6 +157,21 @@ def from_flax_paths(flat):
             node = node.setdefault(m, {})
         node[leaf] = arr
     return out
+
+
+def unet3d_npz(state_dict):
+    """{key: array} of models/cardiac3d.npz for a UNet3D state_dict: the
+    JAX package's '/'-joined key paths of its variables {'params': ...}."""
+    tree = {"params": component_trees(state_dict)["params"]}
+    return {"/".join("['%s']" % k for k in path): arr for path, arr in _flatten(tree)}
+
+
+def unet3d_state_dict_from_npz(flat):
+    """Inverse of unet3d_npz: a UNet3D state_dict from models/cardiac3d.npz's
+    {key: array} (an np.load of the file)."""
+    tree = from_flax_paths({"/".join(k[2:-2] for k in key.split("/")): flat[key]
+                            for key in flat})
+    return component_state_dict(tree["params"])
 
 
 def load_jax_weights(model, params, state):

@@ -74,7 +74,8 @@ def test_randomise_pairs_bit_equal():
 def test_loader_factory(tmp_path, caplog, monkeypatch):
     """'synthetic' and 'chaos' resolve as in the JAX package: a ChaosLoader
     when its folder exists, else the synthetic fixture with the JAX
-    package's warning (the same text from both). 'cardiac' is not ported."""
+    package's warning (the same text from both); 'cardiac' gives the port's
+    CardiacVolumeLoader with its shape argument, as JAX's registry does."""
     from multimodal_segmentation_tpu.data.loader_factory import init_loader as jinit
     from multimodal_segmentation_torch.data import base_loader
     from multimodal_segmentation_torch.data.chaos import ChaosLoader
@@ -95,8 +96,13 @@ def test_loader_factory(tmp_path, caplog, monkeypatch):
         warnings.append([r.getMessage() for r in caplog.records])
     assert warnings[0] == warnings[1] == [
         "CHAOS data folder unavailable (%s); using synthetic fixture" % missing]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        init_loader("cardiac")
+    from multimodal_segmentation_tpu.data.cardiac import CardiacVolumeLoader as JCardiac
+    from multimodal_segmentation_torch.data.cardiac import CardiacVolumeLoader
+
+    assert type(init_loader("cardiac")) is CardiacVolumeLoader
+    assert type(jinit("cardiac")) is JCardiac
+    loader = init_loader("cardiac", shape=(8, 32, 32))
+    assert loader.input_shape == jinit("cardiac", shape=(8, 32, 32)).input_shape == (8, 32, 32, 3)
     with pytest.raises(ValueError):
         init_loader("nope")
 

@@ -98,17 +98,33 @@ def test_cli_trains_tests_and_restores(tiny_preset, tmp_path):
 
 
 def test_cli_defaults_to_the_card_and_raises_for_unported_models(tiny_preset, tmp_path):
-    """Without a card the default device raises; cardiac3d still raises
-    (queue A, item 10). Automated pairing and mmsdnet_config_chaos, which
-    raised until they were ported, build their executors through the CLI
-    on the CPU: `--test` on an empty folder restores nothing and tests the
-    fresh weights (here the MMSDNet one at the tiny widths)."""
+    """Without a card the default device raises, for the 2-D presets and
+    for cardiac_3d. Automated pairing, mmsdnet_config_chaos and
+    cardiac_3d_config, which raised until they were ported, run through the
+    CLI on the CPU: `--test` on an empty folder restores nothing and tests
+    the fresh weights (here the MMSDNet one at the tiny widths); cardiac_3d
+    (tiny volumes through the run's overrides) trains an epoch, writes
+    training.csv, models/cardiac3d.npz and test_results_cardiac/results.csv,
+    and `--test` restores the npz with the same Dice."""
     flags = [f for f in tiny_preset if f not in ("--device", "cpu")]
+    cardiac = ["--config", "cardiac_3d_config", "--split", "0", "--epochs", "1"]
+    small = dict(volume_shape=(8, 32, 32, 3), filters3d=4, downsample3d=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             experiment.Experiment().run(flags + ["--epochs", "1"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        experiment.Experiment().run(["--config", "cardiac_3d", "--split", "0", "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            experiment.Experiment().run(cardiac, **small)
+    ex = experiment.Experiment().run(cardiac + ["--device", "cpu"], **small)
+    folder = tmp_path / "cardiac_3d_l1_lge_bssfp_t2_split0"
+    assert type(ex).__name__ == "Cardiac3DExecutor" and ex.conf.folder == folder.name
+    for name in ("logfile.log", "experiment_configuration.json", "training.csv",
+                 "models/cardiac3d.npz", "test_results_cardiac/results.csv"):
+        assert (folder / name).exists(), name
+    with open(folder / "test_results_cardiac" / "results.csv") as f:
+        first = f.read()
+    experiment.Experiment().run(cardiac + ["--device", "cpu", "--test"], **small)
+    with open(folder / "test_results_cardiac" / "results.csv") as f:
+        assert f.read() == first
     ex = experiment.Experiment().run(tiny_preset + ["--automatedpairing", "--test"])
     assert ex.conf.automatedpairing and ex.conf.folder == "tiny_automatedpairing_l1_t1_t2_split0"
     assert type(ex).__name__ == "DAFNetExecutor" and ex.final_state.step == 0

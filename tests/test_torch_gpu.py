@@ -6,6 +6,7 @@ card's machine has no JAX and tests/conftest.py imports it; run there with
 
 Without a CUDA device every test here skips."""
 
+import dataclasses
 import os
 import shutil
 
@@ -13,7 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from multimodal_segmentation_torch.config import dafnet_chaos, mmsdnet_chaos, tiny_test_config
+from multimodal_segmentation_torch.config import (
+    cardiac_3d,
+    dafnet_chaos,
+    mmsdnet_chaos,
+    tiny_test_config,
+)
 from multimodal_segmentation_torch.models import build_model
 from multimodal_segmentation_torch.ops import augment, cuda_kernels, tps
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
@@ -934,3 +940,57 @@ def test_tiny_new_path_step_on_the_card_matches_cpu(cuda, path):
         lim = 2e-2 if k.startswith("dis_") or k == "rec_Z" else 1e-3
         rel = abs(float(out["card"][k]) / float(v) - 1.0)
         assert rel <= lim, (k, rel)
+
+
+# ------------------------------------------------- volumetric path (A10, B3)
+
+def _tiny_3d(**kw):
+    return dataclasses.replace(cardiac_3d(), volume_shape=(8, 32, 32, 3), filters3d=4,
+                               downsample3d=2, **kw)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 33, 33, 3), (2, 16, 128, 128, 3)])
+def test_volume_rotation_on_the_card_is_the_cpus_and_launches_twice(cuda, shape):
+    """random_rotate_volumes on the card: bit for bit the CPU's (images and
+    {0,1} masks, one angle a study), through exactly 2 nearest_warp
+    launches (volumes, masks) and no other kernel."""
+    r = np.random.RandomState(shape[2])
+    vols = torch.from_numpy((r.rand(*shape) * 2 - 1).astype(np.float32))
+    msks = torch.from_numpy((r.rand(*shape) > 0.7).astype(np.float32))
+    th = torch.from_numpy(np.radians(np.array([14.2, -9.7], np.float32)))
+    cuda_kernels.reset_launch_counts()
+    v, m = augment.random_rotate_volumes(th.to(cuda), vols.to(cuda), msks.to(cuda))
+    assert cuda_kernels.launch_counts() == {k: 2 if k == "nearest_warp" else 0
+                                            for k in cuda_kernels.launch_counts()}
+    cv, cm = augment.random_rotate_volumes(th, vols, msks)
+    assert torch.equal(v.cpu(), cv) and torch.equal(m.cpu(), cm)
+    assert not torch.equal(cv, vols) and set(m.unique().tolist()) <= {0.0, 1.0}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tiny_3d_step_on_the_card_matches_cpu(cuda, dtype):
+    """One tiny Cardiac3DSegmenter step (rotation 15) on the card and on the
+    CPU from the same weights, batch and angles: 2 nearest_warp launches;
+    the loss and every gradient leaf within 1e-3 relative in f32 (a leaf's
+    largest difference over its largest entry), 2e-2 in bf16 (cuDNN's and
+    the CPU's bf16 convolutions round differently), except the biases
+    ahead of an InstanceNorm3D, whose gradient is roundoff. The CPU run
+    takes the card's branch at ReLU kinks (chip_smoke.step_grads_3d)."""
+    from chip_smoke import step_grads_3d
+    from multimodal_segmentation_torch.data import init_loader
+
+    conf = _tiny_3d(rotation_range=15.0, compute_dtype=dtype)
+    xs, ys = init_loader("cardiac", shape=(8, 32, 32)).load_volumes(0, "training")
+    vb, mb = torch.from_numpy(xs[:2]), torch.from_numpy(ys[:2])
+    th = augment.random_rotation_angles(torch.Generator().manual_seed(1), 2, 15.0)
+    cuda_kernels.reset_launch_counts()
+    card = step_grads_3d(torch, conf, cuda, vb, mb, th)
+    assert cuda_kernels.launch_counts()["nearest_warp"] == 2
+    cpu = step_grads_3d(torch, conf, torch.device("cpu"), vb, mb, th, card[2])
+    lim = 1e-3 if dtype == "float32" else 2e-2
+    assert abs(card[0] / cpu[0] - 1) <= lim
+    exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c) for b in range(5) for c in (0, 1)}
+    for n, g in cpu[1].items():
+        if n not in exempt:
+            d = (card[1][n] - g).abs().max() / g.abs().max()
+            assert d <= lim, (n, d.item())

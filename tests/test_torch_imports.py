@@ -32,4 +32,7 @@ def test_every_port_module_imports_without_jax():
             "multimodal_segmentation_torch.tools.debug_warp_kernel",
             "multimodal_segmentation_torch.data.chaos",
             "multimodal_segmentation_torch.data.dicom_native",
-            "multimodal_segmentation_torch.tools.dress_rehearsal"} <= set(res["modules"])
+            "multimodal_segmentation_torch.tools.dress_rehearsal",
+            "multimodal_segmentation_torch.data.cardiac",
+            "multimodal_segmentation_torch.nn.unet3d",
+            "multimodal_segmentation_torch.models.volumetric"} <= set(res["modules"])
