@@ -110,6 +110,36 @@ Phases, one JSON line each:
   experiment-3d the CLI on cardiac_3d_config, 2 epochs, then --test: seconds
                 per epoch, validation and test Dice, the artifacts, the
                 restored Dice within 1e-6, launches
+  dp-kernels    B1, B2, B3 (rotate_group, nearest_warp) and B4 on the two
+                halves of their main-path batches: the concatenation
+                equals the whole call bit for bit (the JAX package's GSPMD
+                batch rules, pallas_kernels.py:446-594)
+  train-dp-nccl1
+                an NCCL process group of world size 1 in this process: the
+                full-width expert step (build_model's weights) through a
+                data = 1 mesh against the mesh-free step and a second
+                mesh-free run (the card's own run-to-run gap: B2's atomics),
+                2 steps: the first forward bit for bit, the rest held as
+                dp_check_against holds it; launches 2/1/3/2 a step, ms a
+                step of both
+  train-dp      two gloo ranks on the one card (torch.multiprocessing),
+                full-width expert step at batch 3 + 3 against the one
+                process on 6, same weights and noise (dp_check_against:
+                the first forward's anatomy logits and rounding flips, its
+                generator metrics within 1e-5 and gradients within 1e-3;
+                after the first update, the one process's rerun as the
+                yardstick), launches 2/1/3/2 a step on each rank, p50 ms
+                over DP_TIMED steps after the compared ones (gloo through
+                the host: not a scaling figure)
+  train-3d-dp   the same two ranks: the full-width 3-D step on (1, 2) and
+                (2, 1) meshes against the unsharded step, loss within
+                2e-5, each gradient leaf within DP_3D_GRAD_REL (ReLU kinks
+                aligned and counted), 2 B3 a step a rank, p50 ms, the
+                halo's op
+  experiment-dp the same two ranks: the tiny executor (early stop at epoch
+                1 of 3, then the test) against one process and its rerun:
+                training.csv within 1e-3 (or 10 times the rerun's gap), the
+                stop, the SWA weights, one set of files, exact launches
 
 Then nvidia-smi's name/power line, the kernels summary and, last, the result
 line. Any failed check raises, and the script exits non-zero without a
@@ -127,6 +157,7 @@ result line; so it does without a CUDA device, or outside the repository.
 """
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import itertools
@@ -180,6 +211,23 @@ EXP3D_EPOCHS = 2
 # package's learning check (tests/test_executor_variants.py:227-259)
 BALANCER_EPOCHS = 6
 BALANCER_STEPS = 20
+# the data-parallel phases: steps compared with one process (they are the
+# warm-up too), then timed steps; train-dp-nccl1's timed steps. One step is
+# compared on the card: after an update its GAN losses (adv_X1 ~180 at the
+# second step) turn lr-sized Adam differences at gradient entries near 0
+# into differences of several % between any two runs that are not bit for
+# bit the same (PERF.md §6); tests/test_torch_parallel.py compares
+# two steps on the CPU, deterministic and tiny
+DP_COMPARED = 1
+DP_TIMED = 6
+DP_NCCL1_TIMED = 3
+# train-3d-dp: each gradient leaf's largest difference over its largest
+# entry. ReLU kinks are aligned (step_grads_3d); max-pool near-ties and the
+# other order of the sums are not: on (2, 1) at full width the
+# full-resolution InstanceNorm biases and convs, whose gradients sum
+# 16 x 128 x 128 voxels with heavy cancellation, reach 5.2e-4 on the H100
+# (1e-5 on the CPU at the tiny size; PERF.md §6)
+DP_3D_GRAD_REL = 1e-3
 
 
 def emit(phase, **fields):
@@ -2113,6 +2161,712 @@ def experiment3d_phase(torch, device, preset, **overrides):
     return out
 
 
+# ------------------------------------------------------ data parallelism
+# The phases of the port's data parallelism (parallel/). The card is one
+# GPU: NCCL refuses two ranks on one device, so the two-rank phases run
+# two gloo ranks on it (each collective goes through the host), and NCCL,
+# the production backend, runs at world size 1 (train-dp-nccl1). Neither
+# can show multi-GPU scaling.
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def native_convolutions(torch):
+    """cuDNN off inside the block: a data-parallel rank convolves fewer
+    samples than the one process, and cuDNN picks another algorithm for
+    another batch size, whose f32 weight gradients differ by up to 7 % of
+    a leaf's largest entry (0.9 % relative L2) from the other's on the H100
+    (PERF.md §6). The comparisons run PyTorch's native convolutions,
+    the same for every batch size; the timed steps run cuDNN."""
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
+def _summed(counts):
+    """{kernel: launches} summed over an iterable of such dicts (ranks)."""
+    out = {k: 0 for k in KERNEL_NAMES}
+    for c in counts:
+        for k, v in c.items():
+            out[k] += v
+    return out
+
+
+def dp_kernels_phase(torch, dev):
+    """What the JAX package's GSPMD batch rules (pallas_kernels.py:446-594)
+    promise: each kernel on the two halves of its main-path batch,
+    concatenated, equals the whole call bit for bit (B1 at the training
+    warp's B = 12, B2 the same, B3's three rotate_group groups of a step
+    at B = 6 and its nearest_warp entry at the 3-D step's (32, 128, 128, 3),
+    B4 at (12, 8, 192, 192)). B2's grad_vol adds with f32 atomics and is
+    not bit-reproducible even between two whole calls: it is held to 1e-6
+    of its largest entry, beside the spread of a second whole call."""
+    import numpy as np
+
+    from multimodal_segmentation_torch.ops import augment, cuda_kernels, tps
+
+    r = np.random.RandomState(21)
+
+    def t(*shape):
+        return torch.from_numpy(r.rand(*shape).astype(np.float32)).to(dev)
+    vol = t(12, 192, 192, 8)
+    off = torch.from_numpy(((r.rand(12, 25, 2) - 0.5) * 0.3).astype(np.float32)).to(dev)
+    wv, cp = tps.tps_coefficients(off), tps.control_grid((5, 5), dev)
+    locs = tps.tps_sample_locations(off, (192, 192)).contiguous()
+    g = torch.from_numpy(r.randn(12, 192, 192, 8).astype(np.float32)).to(dev)
+    groups = [[t(6, 192, 192, c) for c in widths] for widths in ((1, 1, 4, 4), (4, 4), (1, 1))]
+    th = torch.from_numpy(r.uniform(-0.35, 0.35, 6).astype(np.float32)).to(dev)
+    v3 = t(32, 128, 128, 3)
+    th3 = torch.from_numpy(r.uniform(-0.35, 0.35, 32).astype(np.float32)).to(dev)
+    x = t(12, 8, 192, 192)
+    calls = {
+        "tps_warp_fwd (12, 192, 192, 8)": lambda s: [cuda_kernels.tps_warp_fwd(vol[s], wv[s], cp)],
+        "tps_warp_bwd (12, 192, 192, 8)": lambda s: list(cuda_kernels.tps_warp_bwd(
+            vol[s], locs[s], g[s])),
+        "rotate_group (6, 192, 192, 1+1+4+4 | 4+4 | 1+1)": lambda s: [
+            o for grp in groups for o in cuda_kernels.rotate_group(
+                [a[s].contiguous() for a in grp], torch.cos(th[s]), torch.sin(th[s]))],
+        "nearest_warp (32, 128, 128, 3)": lambda s: [cuda_kernels.nearest_warp(
+            v3[s].contiguous(), augment.rotation_locations(th3[s], 128, 128))],
+        "round_ste (12, 8, 192, 192)": lambda s: [cuda_kernels.round_ste(x[s].contiguous())],
+    }
+    out = {}
+    for name, call in calls.items():
+        whole = call(slice(None))
+        n = whole[0].shape[0] // 2
+        halves = [call(slice(0, n)), call(slice(n, None))]
+        again = call(slice(None))
+        torch.cuda.synchronize()
+        row = {"outputs": len(whole)}
+        for k, w in enumerate(whole):
+            cat = torch.cat([halves[0][k], halves[1][k]])
+            if name.startswith("tps_warp_bwd") and k == 0:
+                # grad_vol sums with f32 atomics in an order that changes
+                # from run to run (csrc/tps_warp_bwd.cu): the halves must
+                # lie within that spread, a few ulp of its largest entry
+                top = w.abs().max().item()
+                row["grad_vol_halves_max_diff_over_max"] = (cat - w).abs().max().item() / top
+                row["grad_vol_rerun_max_diff_over_max"] = (again[k] - w).abs().max().item() / top
+                check(row["grad_vol_halves_max_diff_over_max"] <= 1e-6,
+                      "dp-kernels: %s grad_vol on the halves differs by %.3g of its max"
+                      % (name, row["grad_vol_halves_max_diff_over_max"]))
+            else:
+                check(torch.equal(cat, w) and torch.equal(again[k], w),
+                      "dp-kernels: %s output %d on the halves differs from the whole call"
+                      % (name, k))
+        row["bit_exact"] = "all outputs" if len(whole) == 1 or not name.startswith(
+            "tps_warp_bwd") else "grad_locs (grad_vol within the atomics' spread)"
+        out[name] = row
+    return out
+
+
+def dp_train_steps(torch, conf, device, mesh, compared, timed):
+    """DAFNetSteps.step_supervised at `conf` from build_model's weights on
+    the executor's batches (global arrays; under `mesh` this
+    rank's rows, shard_batch), the noise drawn from the train state's
+    generator at the global batch: the metrics of the first `compared`
+    steps (on native convolutions), the generator's gradients of the first
+    (as its Adam gets them) and the state after them (on the CPU), then
+    `timed` more steps: their ms, p50 and launches."""
+    from multimodal_segmentation_torch.data import init_loader
+    from multimodal_segmentation_torch.data.batches import TrainingData
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.parallel import shard_batch
+    from multimodal_segmentation_torch.train import create_train_state, make_steps
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    loader = init_loader("synthetic", hw=conf.input_hw)
+    loader.modalities = list(conf.modality)
+    # the weights build_model draws, where training starts: with the slice's
+    # seeded weights (_seed_weights, a sharper anatomy head) the anatomy
+    # logits of a rank and of the one process differ by ~1e-4 of their
+    # size (the other order of the BatchNorm sums, cuDNN's algorithm for
+    # another batch size), an anatomy value rounds the other way and the
+    # TPS warp's gradient moves by ~30 % (PERF.md §6); at this init
+    # the logits are small and agree far inside the anatomy values'
+    # distance from 0.5 (both reported)
+    model = build_model(conf, device=device)
+    near_half, logits = [], []
+
+    def seen(m, i, o):
+        near_half.append((torch.softmax(o.detach().float(), 1) - 0.5).abs().min().item())
+        if not logits:
+            logits.append(o.detach().float().cpu())
+    hook = model.enc_anatomy.conv_anatomy.register_forward_hook(seen)
+    steps = make_steps(model, conf, mesh)
+    ts = create_train_state(model, conf)
+    batches = TrainingData(conf, loader).assembled_batches()
+    metrics, times, state = [], [], None
+    # the generator's gradients of the first step, as its Adam gets them
+    # (after the mesh's reduction)
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads1, opt_step = {}, ts.opt_gen.step
+
+    def first_step(*a, **k):
+        for p in ts.opt_gen.param_groups[0]["params"]:
+            grads1[names[id(p)]] = p.grad.detach().cpu().clone()
+        ts.opt_gen.step = opt_step
+        return opt_step(*a, **k)
+    ts.opt_gen.step = first_step
+    cuda_kernels.reset_launch_counts()
+    for i in range(compared + timed):
+        batch = next(batches)["sup"]
+        if mesh is not None:
+            batch = shard_batch(mesh, batch, device)
+        if i == compared:
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            budget = adam_budget(model, ts)
+            cuda_kernels.reset_launch_counts()
+        sync()
+        t = time.perf_counter()
+        with native_convolutions(torch) if i < compared else contextlib.nullcontext():
+            ts, m = steps.step_supervised(ts, batch)
+        sync()
+        if i >= compared:
+            times.append(time.perf_counter() - t)
+        m = {k: float(v) for k, v in m.items()}
+        check(all(math.isfinite(v) for v in m.values()), "non-finite metric: %s" % m)
+        if i < compared:
+            metrics.append(m)
+        if i == 0:
+            hook.remove()
+    launches = cuda_kernels.launch_counts()
+    if state is None:
+        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        budget = adam_budget(model, ts)
+    ms = sorted(1e3 * t for t in times)
+    return {"metrics": metrics, "state": state, "budget": budget, "grads1": grads1,
+            "min_anatomy_distance_from_half_step1": min(near_half),
+            "anatomy_logits_step1": logits[0],
+            "launches": launches, "steps_counted": timed,
+            "ms_per_step": [1e3 * t for t in times],
+            "p50_ms_per_step": ms[len(ms) // 2] if ms else None,
+            "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
+
+
+def adam_budget(model, ts):
+    """{parameter name: sum over the Adams that update it of lr x their
+    steps so far}: how far Adam can have moved it (about lr a step), and
+    so how far two runs can part where a gradient entry is near 0."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    opts = [ts.opt_gen, *ts.opt_disc.values()] + ([ts.opt_zreg] if ts.opt_zreg else [])
+    out = {}
+    for opt in opts:
+        lr = opt.param_groups[0]["lr"]
+        for p, st in opt.state.items():
+            out[names[id(p)]] = out.get(names[id(p)], 0.0) + lr * float(st["step"])
+    return out
+
+
+def _biases_ahead_of_batchnorm(model):
+    """The bias of every conv that feeds a BatchNorm (Conv_k -> Norm_k or
+    BatchNorm_k in one module): gradient 0 in exact arithmetic."""
+    from multimodal_segmentation_torch.nn.blocks import BatchNorm, Conv2d
+
+    names = set()
+    for prefix, m in model.named_modules():
+        for child_name, child in m.named_children():
+            if isinstance(child, BatchNorm):
+                k = child_name.rsplit("_", 1)[1]
+                conv = getattr(m, "Conv_" + k, None)
+                if isinstance(conv, Conv2d) and conv.bias is not None:
+                    names.add((prefix + "." if prefix else "") + "Conv_%s.bias" % k)
+    return names
+
+
+def dp_state_gap(got, ref, biases, budget, buffer_rel=None):
+    """Parameters and buffers of a run against another, from the same
+    start: the largest difference of a parameter entry over its Adam
+    budget (adam_budget; the biases ahead of a BatchNorm and the rest
+    apart), the largest of a buffer (BatchNorm statistics, spectral u)
+    relative to its leaf's largest entry, and the share of entries off by
+    more than 1e-5 of their leaf's largest entry plus 0.05 of the budget.
+    Integer buffers must be equal; with `buffer_rel`, each buffer within
+    that share of its leaf's largest entry plus 0.02 of the smallest
+    budget (a running mean takes 0.01 of its conv bias's difference)."""
+    worst = {"max_over_budget_biases_ahead_of_batchnorm": 0.0, "max_over_budget_other": 0.0,
+             "max_rel_buffers": 0.0, "share_past_1e-5_rel": 0.0, "entries": 0}
+    past, least = 0, min(budget.values())
+    for k, r in ref.items():
+        if not r.is_floating_point():
+            check(got[k].equal(r), "dp state %s differs" % k)
+            continue
+        diff = (got[k] - r).abs()
+        d, b, top = diff.max().item(), budget.get(k, least), r.abs().max().item()
+        if k in budget:
+            key = ("max_over_budget_biases_ahead_of_batchnorm" if k in biases
+                   else "max_over_budget_other")
+            worst[key] = max(worst[key], d / b)
+        else:
+            worst["max_rel_buffers"] = max(worst["max_rel_buffers"], d / top if top else d)
+            if buffer_rel is not None:
+                check(d <= buffer_rel * top + 0.02 * least, "dp buffer %s differs by %.3g "
+                      "(largest entry %.3g, limit %.3g relative)" % (k, d, top, buffer_rel))
+        past += int((diff > 1e-5 * top + 0.05 * b).sum())
+        worst["entries"] += r.numel()
+    worst["share_past_1e-5_rel"] = past / max(worst["entries"], 1)
+    return worst
+
+
+def dp_grads_gap(got, ref, biases):
+    """The largest relative difference of a gradient leaf (its largest
+    difference over its largest entry), the biases ahead of a BatchNorm
+    (gradient 0 in exact arithmetic) apart, over the largest gradient."""
+    top = max(g.abs().max().item() for g in ref.values())
+    other, leaf = max(((got[n] - g).abs().max().item() / g.abs().max().item(), n)
+                      for n, g in ref.items() if n not in biases and g.abs().max().item() > 0)
+    zero = max((got[n] - ref[n]).abs().max().item() for n in biases if n in ref) / top
+    diff = sum((got[n] - g).double().square().sum().item() for n, g in ref.items())
+    norm = sum(g.double().square().sum().item() for g in ref.values())
+    return {"max_rel": other, "worst_leaf": leaf, "rel_l2": math.sqrt(diff / norm),
+            "biases_ahead_of_batchnorm_over_top": zero}
+
+
+def dp_check_against(name, got, ref, rerun, rank=0):
+    """Hold a data-parallel run (`got`: dp_train_steps' result) to the one
+    process (`ref`), with the one process's rerun (`rerun`: the same start
+    again) as the yardstick of what the card itself does not reproduce
+    (B2 adds with f32 atomics; Adam turns roundoff at gradient entries
+    near 0 into steps of up to lr). `rank`: got's rows are the rank-th
+    slice of the batch.
+
+    Before any update: the first forward's anatomy logits are compared
+    and their rounding flips counted; without a flip the first step's
+    generator metrics agree within 1e-5; its generator gradients within
+    2e-2 relative L2, or 10 times the rerun's gap: a rank's forward sums
+    in another order, so ReLU and max-pool decisions within roundoff of a
+    tie go the other way and route their gradient elsewhere (in the 3-D
+    phase such kinks are aligned; here they are many): 1.1e-4 in the tiny
+    CPU rehearsal, 4.9e-3 (leaf max 3.1e-2) at full width on the H100
+    (PERF.md §6), where two runs with one forward differ by 1.2e-6.
+    After the
+    update: every parameter entry within twice its Adam budget; at most
+    0.5 % of the entries, or 3 times the rerun's share, past 1e-5 of their
+    leaf; each buffer within 2e-3 of its leaf, or 10 times the rerun's gap
+    (dp_state_gap); the metrics that see the updated generator (the
+    discriminators') within 1e-2 or 10 times the rerun's gap: on the card
+    the reruns and the mesh of one rank already differ there by 4.5e-4 to
+    3.5e-3 (tests/test_torch_dafnet_train.py holds the port to 2e-3 of JAX
+    on the CPU). Returns the gaps."""
+    biases = set(ref["biases_ahead_of_batchnorm"])
+    # the first forward's anatomy logits (the dual encoder's, both
+    # modalities interleaved): this run's rows of the reference's
+    a = got["anatomy_logits_step1"]
+    part = ref["anatomy_logits_step1"][rank * a.shape[0]:(rank + 1) * a.shape[0]]
+    flips = int(((a.softmax(1) > 0.5) != (part.softmax(1) > 0.5)).sum())
+    spread = {"metric_rel_diff_by_step": dp_metrics_gap(rerun["metrics"], ref["metrics"]),
+              "step1_generator_grads": dp_grads_gap(rerun["grads1"], ref["grads1"], biases),
+              "state": dp_state_gap(rerun["state"], ref["state"], biases, ref["budget"])}
+    buffer_rel = max(2e-3, 10 * spread["state"]["max_rel_buffers"])
+    out = {"anatomy_logits_step1_max_diff": (a - part).abs().max().item(),
+           "anatomy_rounding_flips_step1": flips,
+           "metric_rel_diff_by_step": dp_metrics_gap(got["metrics"], ref["metrics"]),
+           "step1_generator_grads": dp_grads_gap(got["grads1"], ref["grads1"], biases),
+           "state": dp_state_gap(got["state"], ref["state"], biases, ref["budget"], buffer_rel)}
+    for i, (g, r) in enumerate(zip(out["metric_rel_diff_by_step"],
+                                   spread["metric_rel_diff_by_step"])):
+        for kind in g:
+            tight = i == 0 and kind == "generator" and not flips
+            lim = 1e-5 if tight else max(1e-2, 10 * r[kind])
+            check(g[kind] <= lim, "%s: step %d %s metrics differ by %.3g (limit %.3g): %s vs %s"
+                  % (name, i, kind, g[kind], lim, got["metrics"][i], ref["metrics"][i]))
+    g, r = out["step1_generator_grads"], spread["step1_generator_grads"]
+    lim = max(2e-2, 10 * r["rel_l2"])
+    check(g["rel_l2"] <= lim, "%s: first-step gradients differ by %.3g (relative L2, limit "
+          "%.3g): %s; the rerun's %s" % (name, g["rel_l2"], lim, out, r))
+    g, r = out["state"], spread["state"]
+    for key in ("max_over_budget_biases_ahead_of_batchnorm", "max_over_budget_other"):
+        # two Adam steps of opposite sign, each under lr, plus the
+        # parameter's own f32 rounding
+        check(g[key] <= 2.001, "%s: %s %.6g" % (name, key, g[key]))
+    lim = max(5e-3, 3 * r["share_past_1e-5_rel"])
+    check(g["share_past_1e-5_rel"] <= lim, "%s: %.3g of the entries past 1e-5 (limit %.3g)"
+          % (name, g["share_past_1e-5_rel"], lim))
+    out["one_process_rerun"] = spread
+    return out
+
+
+def dp_metrics_gap(got, ref):
+    """The largest relative difference of the metrics of a run from
+    another's, step by step: [{'generator': x, 'discriminators': y}, ...]."""
+    out = []
+    for g, r in zip(got, ref, strict=True):
+        check(sorted(g) == sorted(r), "dp metric names %s != %s" % (sorted(g), sorted(r)))
+        gaps = {"generator": 0.0, "discriminators": 0.0}
+        for k in r:
+            rel = abs(g[k] - r[k]) / abs(r[k]) if r[k] else abs(g[k])
+            kind = "discriminators" if k.startswith("dis_") else "generator"
+            gaps[kind] = max(gaps[kind], rel)
+        out.append(gaps)
+    return out
+
+
+def train_dp_nccl1_phase(torch, conf, device, compared, timed):
+    """An NCCL process group of world size 1 in this process and a
+    data = 1 mesh: the full-width expert step through the mesh code against
+    the mesh-free step on the same card, from the same weights, batches and
+    noise. An all-reduce of one rank is a copy, BatchNorm averages one
+    rank's moments (divided by 1), the gradients are divided by 1: the
+    first step's forward, and so its generator metrics, must equal the
+    mesh-free run's bit for bit. The rest need not: two mesh-free runs
+    already differ (dp_check_against), so a second mesh-free run is the
+    yardstick. Launches exact in both. Returns (row, the mesh-free run,
+    its rerun) for train-dp."""
+    import torch.distributed as dist
+
+    from multimodal_segmentation_torch.parallel import make_mesh
+
+    alone = dp_train_steps(torch, conf, device, None, compared, timed)
+    again = dp_train_steps(torch, conf, device, None, compared, 0)
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="tcp://localhost:%d" % _free_port(),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        meshed = dp_train_steps(torch, conf, device, mesh, compared, timed)
+        used = dist.get_backend(mesh.axis("data").group)
+    finally:
+        dist.destroy_process_group()
+    first = {k: v for k, v in alone["metrics"][0].items() if not k.startswith("dis_")}
+    check(all(meshed["metrics"][0][k] == v for k, v in first.items()),
+          "nccl1: the first step's generator metrics differ: %s vs %s"
+          % (meshed["metrics"][0], alone["metrics"][0]))
+    gaps = dp_check_against("train-dp-nccl1", meshed, alone, again)
+    want = {k: v * timed for k, v in launches_per_batch(conf).items()}
+    if device == "cuda":
+        for run in (alone, meshed):
+            check(run["launches"] == want, "nccl1 launches %s != %s" % (run["launches"], want))
+    row = {"backend": used, "world_size": 1, "batch": conf.batch_size,
+           "compared_steps": compared, "first_step_generator_metrics_bit_equal": True, **gaps,
+           "min_anatomy_distance_from_half_step1": alone["min_anatomy_distance_from_half_step1"],
+           "launches": meshed["launches"], "timed_steps": timed,
+           "p50_ms_per_step_mesh": meshed["p50_ms_per_step"],
+           "p50_ms_per_step_mesh_free": alone["p50_ms_per_step"],
+           "ms_per_step_mesh": meshed["ms_per_step"],
+           "ms_per_step_mesh_free": alone["ms_per_step"]}
+    return row, alone, again
+
+
+def dp_3d_reference(torch, conf, device):
+    """The unsharded 3-D step of train-3d-dp: the first batch and angles,
+    the loss, the gradients and the InstanceNorm3D outputs (step_grads_3d)."""
+    from multimodal_segmentation_torch.ops import augment
+
+    _, batches = _cardiac_batches(torch, conf, "cpu")
+    vb, mb = next(batches)
+    th = augment.random_rotation_angles(torch.Generator().manual_seed(conf.seed),
+                                        conf.batch_size, conf.rotation_range)
+    with native_convolutions(torch):
+        loss, grads, outs, _ = step_grads_3d(torch, conf, device, vb, mb, th)
+    return {"vb": vb, "mb": mb, "th": th, "loss": loss, "grads": grads, "norms": outs}
+
+
+def dp_3d_rank(torch, conf, device, shape, ref, timed):
+    """On a ('data', 'space') mesh of `shape`: one Cardiac3DSegmenter.step
+    from init(conf.seed) on this rank's part of the reference batch with
+    the global angles, each InstanceNorm3D output that lies on the other
+    side of 0 from the unsharded run's taking that run's value (so the
+    ReLU after it takes its branch; the count is kept): the loss and the
+    gradients after the mesh's reduction; then `timed` more steps on the
+    same batch with fresh angles: ms, p50, launches."""
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.nn.unet3d import InstanceNorm3D
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.parallel import Mesh
+    from multimodal_segmentation_torch.parallel.collectives import halo_transport
+
+    mesh = Mesh(("data", "space"), shape)
+    d, s = mesh.axis("data"), mesh.axis("space")
+    model = Cardiac3DSegmenter(conf, device=device, mesh=mesh)
+    params, opt = model.init(conf.seed)
+    kinks = [0]
+
+    def hook(name):
+        def f(m, i, o):
+            t = ref["norms"][name]
+            b, k = t.shape[0] // d.size, t.shape[2] // s.size
+            t = t[d.index * b:(d.index + 1) * b, :, s.index * k:(s.index + 1) * k].to(o.device)
+            flip = (o > 0) != (t > 0)
+            kinks[0] += int(flip.sum())
+            return o + ((t - o) * flip).detach()
+        return f
+    handles = [m.register_forward_hook(hook(n)) for n, m in params.named_modules()
+               if isinstance(m, InstanceNorm3D)]
+    vb, mb = model.shard_batch((ref["vb"], ref["mb"]))
+    try:
+        with native_convolutions(torch):
+            _, _, loss = model.step(params, opt, vb, mb, ref["th"])
+    finally:
+        for h in handles:
+            h.remove()
+    grads = {n: p.grad.float().cpu() for n, p in params.named_parameters()}
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    cuda_kernels.reset_launch_counts()
+    times = []
+    for _ in range(timed):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, l = model.step(params, opt, vb, mb)
+        sync()
+        times.append(time.perf_counter() - t0)
+        check(math.isfinite(l.item()), "train-3d-dp loss not finite")
+    ms = sorted(1e3 * t for t in times)
+    return {"mesh": {"data": shape[0], "space": shape[1]}, "loss": loss.item(), "grads": grads,
+            "kinks": kinks[0], "launches": cuda_kernels.launch_counts(), "steps_counted": timed,
+            "halo": halo_transport(s, device) if s.size > 1 else None,
+            "ms_per_step": [1e3 * t for t in times], "p50_ms_per_step": ms[len(ms) // 2]}
+
+
+def dp_experiment(torch, conf, device, mesh):
+    """The DAFNet executor (train, then test) at `conf`, alone or on
+    `mesh`: the final epoch and step, the early stop epoch, the SWA
+    weights (on the CPU), training.csv, how many times this process wrote
+    each kind of file, and the kernel launches with what the counted calls
+    should have launched."""
+    from multimodal_segmentation_torch.eval.tester import ModelTester
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.train.executor import make_executor
+    from multimodal_segmentation_torch.utils import observability
+    from multimodal_segmentation_torch.utils.checkpoint import CheckpointManager
+
+    writes, saved = {}, []
+    for cls, name in ((CheckpointManager, "save"), (CheckpointManager, "save_component_weights"),
+                      (observability.LossLogger, "on_epoch_end"),
+                      (observability.TrainingImageCallback, "on_epoch_end"),
+                      (ModelTester, "run")):
+        fn = getattr(cls, name)
+        saved.append((cls, name, fn))
+
+        def wrapper(*a, _fn=fn, _key=cls.__name__ + "." + name, **k):
+            writes[_key] = writes.get(_key, 0) + 1
+            return _fn(*a, **k)
+        setattr(cls, name, wrapper)
+    counted = _Counted().__enter__()
+    try:
+        cuda_kernels.reset_launch_counts()
+        model = build_model(conf, device=device)
+        ex = make_executor(conf, model, device=device, mesh=mesh)
+        with native_convolutions(torch):
+            ts = ex.train()
+            ex.test()
+        launches = cuda_kernels.launch_counts()
+    finally:
+        counted.__exit__()
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+    with open(os.path.join(conf.folder, "training.csv")) as f:
+        rows = list(csv.DictReader(f)) if (mesh is None or mesh.rank == 0) else None
+    images = writes.get("TrainingImageCallback.on_epoch_end", 0)
+    return {"epoch": ts.epoch, "step": ts.step, "stopped_epoch": ex.early_stopping.stopped_epoch,
+            "swa": {k: v.detach().cpu().clone() for k, v in ts.swa.items()},
+            "budget": adam_budget(model, ts),
+            "training_csv": rows, "writes": writes, "launches": launches,
+            "launches_want": counted.want(conf, images),
+            "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
+
+
+def dp_experiment_conf(folder):
+    """The tiny config, 3 epochs of 2 steps, early stopping set to fire at
+    epoch 1 (a loss must fall by 10 to count), on the synthetic data.
+    training.csv is held to 1e-3 relative, or to 10 times a second one
+    process run's own difference, whichever is larger: its epoch means
+    take in steps after updates, where Adam's lr-sized differences at
+    gradient entries near 0 move the discriminator metrics (2.6e-5 on the
+    H100, PERF.md §6; 2.7e-7 on the CPU); the SWA weights as
+    dp_check_against holds the state."""
+    from multimodal_segmentation_torch import config
+
+    return dataclasses.replace(config.tiny_test_config(), dataset_name="synthetic",
+                               test_dataset="synthetic", steps_per_epoch=2, epochs=3,
+                               es_patience=1, es_min_delta=10.0, folder=folder)
+
+
+def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d):
+    """One of the two gloo ranks of train-dp, train-3d-dp and experiment-dp
+    (started by dp_phases with torch.multiprocessing): joins the group,
+    runs the three phases' rank parts and saves its results to
+    work/rank<r>.pt. An exception ends the process with a non-zero code."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_segmentation_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="tcp://localhost:%d" % port, world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=600))
+    try:
+        out = {"backend": dist.get_backend()}
+        out["train-dp"] = dp_train_steps(torch, conf2d, device, make_mesh(2), DP_COMPARED,
+                                         DP_TIMED)
+        ref3d = torch.load(os.path.join(work, "ref3d.pt"), weights_only=False)
+        out["train-3d-dp"] = [dp_3d_rank(torch, conf3d, device, s, ref3d, DP_TIMED)
+                              for s in shapes3d]
+        del ref3d
+        exp_conf = dp_experiment_conf(os.path.join(work, "experiment_dp"))
+        out["experiment-dp"] = dp_experiment(torch, exp_conf, device, make_mesh(2))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, "rank%d.pt" % rank))
+
+
+def dp_phases(torch, device, conf2d, conf3d, **fields):
+    """train-dp-nccl1, then train-dp, train-3d-dp and experiment-dp: the
+    references in this process, then two gloo ranks (one spawned process
+    each, the kernels already built) for the three phases at once. Emits
+    each phase's line (with `fields`) when it is checked; returns {phase:
+    row}."""
+    import torch.multiprocessing as mp
+
+    work = os.path.join(OUT_DIR, "dp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rows = {}
+    rows["train-dp-nccl1"], alone, again = train_dp_nccl1_phase(
+        torch, conf2d, device, DP_COMPARED, DP_NCCL1_TIMED)
+    emit("train-dp-nccl1", **fields, **rows["train-dp-nccl1"])
+    ref3d = dp_3d_reference(torch, conf3d, device)
+    torch.save({k: ref3d[k] for k in ("vb", "mb", "th", "norms")}, os.path.join(work, "ref3d.pt"))
+    exp_alone = dp_experiment(torch, dp_experiment_conf(os.path.join(work, "experiment_alone")),
+                              device, None)
+    exp_again = dp_experiment(torch, dp_experiment_conf(os.path.join(work, "experiment_again")),
+                              device, None)
+    sync()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    shapes3d = [(1, 2), (2, 1)]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank, args=(_free_port(), work, device, conf2d, conf3d, shapes3d),
+                             nprocs=2, join=False, start_method="spawn")
+    while not ctx.join(timeout=600):
+        pass
+    ranks_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(work, "rank%d.pt" % r), weights_only=False) for r in range(2)]
+    want2d = {k: v * DP_TIMED for k, v in launches_per_batch(conf2d).items()}
+    want3d = {k: 2 * DP_TIMED if k == "nearest_warp" else 0 for k in KERNEL_NAMES}
+
+    # train-dp: each rank against the one process on the whole batches
+    per_rank = []
+    for rank, r in enumerate(res):
+        t = r["train-dp"]
+        gaps = dp_check_against("train-dp rank %d" % rank, t, alone, again, rank)
+        gaps.pop("one_process_rerun")
+        if device == "cuda":
+            check(t["launches"] == want2d, "train-dp rank %d launches %s" % (rank, t["launches"]))
+        per_rank.append({"rank": rank, **gaps,
+                         "min_anatomy_distance_from_half_step1":
+                             t["min_anatomy_distance_from_half_step1"],
+                         "launches": t["launches"],
+                         "p50_ms_per_step": t["p50_ms_per_step"], "ms_per_step": t["ms_per_step"]})
+    rows["train-dp"] = {
+        "backend": res[0]["backend"], "ranks": 2, "cards": 1, "batch": conf2d.batch_size,
+        "batch_per_rank": conf2d.batch_size // 2, "compared_steps": DP_COMPARED,
+        "timed_steps": DP_TIMED, "ranks_wall_s": ranks_s,
+        "p50_ms_per_step_one_process": rows["train-dp-nccl1"]["p50_ms_per_step_mesh_free"],
+        "note": "two gloo ranks on one card: every collective goes through the host; "
+                "not a scaling figure",
+        "one_process_rerun": rows["train-dp-nccl1"]["one_process_rerun"],
+        "per_rank": per_rank}
+    emit("train-dp", **fields, **rows["train-dp"])
+
+    # train-3d-dp: each mesh on each rank against the unsharded step
+    exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c)
+              for b in range(2 * conf3d.downsample3d + 1) for c in (0, 1)}
+    top = max(g.abs().max().item() for g in ref3d["grads"].values())
+    meshes = []
+    for i, shape in enumerate(shapes3d):
+        for rank, r in enumerate(res):
+            t = r["train-3d-dp"][i]
+            loss_rel = abs(t["loss"] / ref3d["loss"] - 1.0)
+            check(loss_rel <= 2e-5, "train-3d-dp %s loss differs by %.3g" % (shape, loss_rel))
+            rel = {n: ((t["grads"][n] - g).abs().max() / g.abs().max()).item()
+                   for n, g in ref3d["grads"].items() if n not in exempt}
+            bad = {n: v for n, v in rel.items() if not v <= DP_3D_GRAD_REL}
+            check(not bad, "train-3d-dp %s gradients differ: %s" % (shape, bad))
+            zero = max((t["grads"][n] - ref3d["grads"][n]).abs().max().item() for n in exempt)
+            if device == "cuda":
+                check(t["launches"] == want3d, "train-3d-dp launches %s" % t["launches"])
+            meshes.append({"mesh": t["mesh"], "rank": rank, "loss": t["loss"],
+                           "loss_rel_diff": loss_rel, "max_grad_rel_diff": max(rel.values()),
+                           "zero_gradient_biases_max_diff_over_top": zero / top,
+                           "relu_kinks_aligned": t["kinks"], "halo": t["halo"],
+                           "launches": t["launches"], "p50_ms_per_step": t["p50_ms_per_step"],
+                           "ms_per_step": t["ms_per_step"]})
+    rows["train-3d-dp"] = {"backend": res[0]["backend"], "ranks": 2, "cards": 1,
+                           "batch": conf3d.batch_size, "volume": list(conf3d.volume_shape),
+                           "filters3d": conf3d.filters3d, "downsample3d": conf3d.downsample3d,
+                           "loss_unsharded": ref3d["loss"], "timed_steps": DP_TIMED,
+                           "note": "two gloo ranks on one card: not a scaling figure",
+                           "meshes": meshes}
+    emit("train-3d-dp", **fields, **rows["train-3d-dp"])
+
+    # experiment-dp: the 2-rank executor against the one process, beside
+    # the one process's own run-to-run spread (B2's atomics on the card)
+    def csv_gaps(got, ref):
+        """{column: largest relative difference over the rows}"""
+        check(len(got) == len(ref), "training.csv rows %d != %d" % (len(got), len(ref)))
+        return {k: max(abs(float(g[k]) - float(w[k])) / max(abs(float(w[k])), 1e-30)
+                       for g, w in zip(got, ref)) for k in ref[0]}
+    e0, e1 = res[0]["experiment-dp"], res[1]["experiment-dp"]
+    biases = set(exp_alone["biases_ahead_of_batchnorm"])
+    csv_spread = csv_gaps(exp_again["training_csv"], exp_alone["training_csv"])
+    swa_spread = dp_state_gap(exp_again["swa"], exp_alone["swa"], biases, exp_alone["budget"])
+    for e in (e0, e1):
+        check((e["epoch"], e["step"], e["stopped_epoch"]) ==
+              (exp_alone["epoch"], exp_alone["step"], exp_alone["stopped_epoch"]),
+              "experiment-dp stops at %s, alone at %s" % (
+                  (e["epoch"], e["step"], e["stopped_epoch"]),
+                  (exp_alone["epoch"], exp_alone["step"], exp_alone["stopped_epoch"])))
+        swa_gap = dp_state_gap(e["swa"], exp_alone["swa"], biases, exp_alone["budget"])
+        lim = max(5e-3, 3 * swa_spread["share_past_1e-5_rel"])
+        check(swa_gap["share_past_1e-5_rel"] <= lim and
+              max(swa_gap["max_over_budget_biases_ahead_of_batchnorm"],
+                  swa_gap["max_over_budget_other"]) <= 2.001,
+              "experiment-dp SWA weights: %s (the one process's rerun: %s)"
+              % (swa_gap, swa_spread))
+        if device == "cuda":
+            check(e["launches"] == e["launches_want"],
+                  "experiment-dp launches %s != %s" % (e["launches"], e["launches_want"]))
+    check(e0["writes"] == exp_alone["writes"] and e1["writes"] == {},
+          "experiment-dp writes: rank 0 %s, rank 1 %s, alone %s"
+          % (e0["writes"], e1["writes"], exp_alone["writes"]))
+    csv_gap = csv_gaps(e0["training_csv"], exp_alone["training_csv"])
+    for k, v in csv_gap.items():
+        check(v <= max(1e-3, 10 * csv_spread[k]), "experiment-dp training.csv %s differs by %.3g "
+              "(the one process's own spread %.3g)" % (k, v, csv_spread[k]))
+    rows["experiment-dp"] = {"backend": res[0]["backend"], "ranks": 2, "config": "tiny",
+                             "epochs_run": e0["epoch"] + 1, "stopped_epoch": e0["stopped_epoch"],
+                             "steps": e0["step"],
+                             "training_csv_max_rel_diff": max(csv_gap.values()),
+                             "one_process_rerun_training_csv_max_rel_diff":
+                                 max(csv_spread.values()),
+                             "swa": swa_gap, "one_process_rerun_swa": swa_spread,
+                             "writes_rank0": e0["writes"], "writes_rank1": e1["writes"],
+                             "writes_one_process": exp_alone["writes"],
+                             "launches": [e0["launches"], e1["launches"]]}
+    emit("experiment-dp", **fields, **rows["experiment-dp"])
+    return rows
+
+
 def _kernel_kind(name):
     n = name.lower()
     if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste",
@@ -2235,6 +2989,9 @@ def main(argv=None):
         emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cpu"))
         small = {k: getattr(tiny_3d(), k) for k in ("volume_shape", "filters3d", "downsample3d")}
         emit("experiment-3d", **experiment3d_phase(torch, "cpu", "cardiac_3d_config", **small))
+        conf = config.tiny_test_config()
+        conf.dataset_name = "synthetic"
+        dp_phases(torch, "cpu", conf, tiny_3d())
         return 0
 
     if not torch.cuda.is_available():
@@ -2256,7 +3013,9 @@ def main(argv=None):
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         nccl_available=torch.distributed.is_nccl_available(),
+         gloo_available=torch.distributed.is_gloo_available())
 
     t0 = time.perf_counter()
     builds = cuda_kernels.build_all()
@@ -2282,6 +3041,7 @@ def main(argv=None):
         "train B=12 bf16": kern["flow"]["B=12"]["device_ms"] / fwd["train_bfloat16"]["device_ms"],
     }
     emit("kernels", card=smi, **kern)
+    emit("dp-kernels", card=smi, **dp_kernels_phase(torch, dev))
     bisect = debug_warp_phase(torch, "cuda")
     emit("debug-warp", **bisect)
 
@@ -2351,6 +3111,11 @@ def main(argv=None):
     emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cuda"))
     exp3d = experiment3d_phase(torch, "cuda", "cardiac_3d_config")
     emit("experiment-3d", card=smi, **exp3d)
+    # data parallelism: NCCL at world size 1, two gloo ranks on the card
+    torch.cuda.empty_cache()
+    conf = config.dafnet_chaos()
+    conf.dataset_name = "synthetic"
+    dp = dp_phases(torch, "cuda", conf, config.cardiac_3d(), card=smi)
 
     # launches of every path: inference (slice, slice-bf16), the train
     # phases, the lockstep runs, the experiment, the dress rehearsal and
@@ -2366,7 +3131,11 @@ def main(argv=None):
              "balancer-order": balancer["launches"],
              **{k: v["launches"] for k, v in train3d.items()},
              "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
-                               for n in exp3d["launches"]}}
+                               for n in exp3d["launches"]},
+             "train-dp-nccl1": dp["train-dp-nccl1"]["launches"],
+             "train-dp": _summed(r["launches"] for r in dp["train-dp"]["per_rank"]),
+             "train-3d-dp": _summed(m["launches"] for m in dp["train-3d-dp"]["meshes"]),
+             "experiment-dp": _summed(dp["experiment-dp"]["launches"])}
     launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
     main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
     src = "multimodal_segmentation_torch/csrc/"

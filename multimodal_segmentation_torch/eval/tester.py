@@ -19,6 +19,7 @@ from multimodal_segmentation_torch import losses
 from multimodal_segmentation_torch.data.loader_factory import init_loader
 from multimodal_segmentation_torch.models import build_model, full_f32_matmuls
 from multimodal_segmentation_torch.models.base import resolve_device
+from multimodal_segmentation_torch.utils.nan_checks import check_finite
 from multimodal_segmentation_torch.utils.observability import save_image_grid
 
 log = logging.getLogger("model_tester")
@@ -78,6 +79,7 @@ class ModelTester:
             )
 
     def test_modality_type(self, folder, modality_index, ftype, test_loader, test_data):
+        conf = self.conf
         samples = os.path.join(folder, "samples")
         os.makedirs(samples, exist_ok=True)
         vols = test_data.volumes()
@@ -102,7 +104,10 @@ class ModelTester:
                 x2p = np.pad(x2, ((0, pad), (0, 0), (0, 0), (0, 0)))
                 prd = self.model.predict_mask(
                     modality_index, ftype, [x1p, x2p], device=self.device
-                ).cpu().numpy()[:n]
+                )
+                if conf.debug_nans:
+                    check_finite(prd, "the %s prediction of volume %s" % (ftype, v))
+                prd = prd.cpu().numpy()[:n]
 
                 im_dice[v] = losses.dice_np(vol_mask, prd, binarise=True)
                 sep = [

@@ -140,7 +140,9 @@ class Experiment:
         from multimodal_segmentation_torch.train.executor import make_executor
 
         if conf.debug_nans:
-            # the debug configuration's NaN guard (SURVEY.md §5.2)
+            # the debug configuration's NaN guard (SURVEY.md §5.2): anomaly
+            # mode for the backward; build_model and the 3-D segmenter hook
+            # every module's forward (utils/nan_checks.py)
             torch.autograd.set_detect_anomaly(True)
         if conf.model == "cardiac3d":
             # the volumetric family (models/volumetric.py)

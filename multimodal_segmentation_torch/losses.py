@@ -15,6 +15,8 @@ taken of the ground truth.
 import numpy as np
 import torch
 
+from multimodal_segmentation_torch.parallel.collectives import all_reduce_sum
+
 LAMBDA_BCE = 0.01  # costs.py:10
 
 
@@ -85,12 +87,16 @@ def restricted_dice_loss(y_true, y_pred, restrict_chn):
     return dice_loss(y_true[..., :restrict_chn], y_pred[..., :restrict_chn])
 
 
-def _reference_weighted_bce(y_true, y_pred, eps=1e-12):
+def _reference_weighted_bce(y_true, y_pred, eps=1e-12, group=None):
     """The math of costs.py:70-85 as combined_dice_bce calls it:
       n_c = sum(pred_c);  w_c = n_tot / (n_c + eps)
-      loss = mean_px( -sum_c pred_c * log(true_c + eps) * w_c )."""
+      loss = mean_px( -sum_c pred_c * log(true_c + eps) * w_c ).
+    The masses n_c sum over the batch axis too: with `group` (data
+    parallelism) they are all-reduced over it, differentiably, so they
+    are the global batch's, and the gradient flows through them as in
+    the JAX package (no stop-gradient)."""
     num_classes = y_true.shape[-1]
-    n = torch.sum(y_pred.float(), dim=(0, 1, 2))  # (C,) predicted mass
+    n = all_reduce_sum(torch.sum(y_pred.float(), dim=(0, 1, 2)), group)  # (C,) predicted mass
     weights = torch.sum(n) / (n + eps)
     pred = y_pred.reshape(-1, num_classes)
     true = y_true.reshape(-1, num_classes).float()
@@ -98,22 +104,23 @@ def _reference_weighted_bce(y_true, y_pred, eps=1e-12):
     return torch.mean(wce)
 
 
-def combined_dice_bce(y_true, y_pred, num_classes):
+def combined_dice_bce(y_true, y_pred, num_classes, group=None):
     """dice(first num_classes channels) + 0.01 * swapped-argument weighted
-    BCE (costs.py:129-136)."""
+    BCE (costs.py:129-136); `group` as _reference_weighted_bce's."""
     return restricted_dice_loss(y_true, y_pred, num_classes) + LAMBDA_BCE * (
-        _reference_weighted_bce(y_true, y_pred)
+        _reference_weighted_bce(y_true, y_pred, group=group)
     )
 
 
-def _reference_weighted_bce_perbatch(y_true, y_pred, eps=1e-12):
+def _reference_weighted_bce_perbatch(y_true, y_pred, eps=1e-12, group=None):
     """Per-sample variant of the swapped-argument weighted BCE (costs.py:
     88-108 as costs.py:142 calls it): the class weights from the
-    predicted mass of the whole batch, the softmax of the ground truth
-    under the log; shape (B,).
+    predicted mass of the whole batch (with `group`, the global batch's,
+    as in _reference_weighted_bce), the softmax of the ground truth under
+    the log; shape (B,).
       loss_b = mean_px( -sum_c pred_c * log(softmax(true)_c + eps) * w_c )."""
     B, H, W, C = y_true.shape
-    n = torch.sum(y_pred, dim=(0, 1, 2))
+    n = all_reduce_sum(torch.sum(y_pred, dim=(0, 1, 2)), group)
     weights = torch.sum(n) / (n + eps)
     pred = y_pred.reshape(B, H * W, C)
     true = y_true.reshape(B, H * W, C).float()
@@ -122,10 +129,10 @@ def _reference_weighted_bce_perbatch(y_true, y_pred, eps=1e-12):
     return torch.mean(wce, dim=1)
 
 
-def combined_dice_bce_perbatch(y_true, y_pred, num_classes, eps=1e-12):
+def combined_dice_bce_perbatch(y_true, y_pred, num_classes, eps=1e-12, group=None):
     """Per-sample combined loss, shape (B,) (costs.py:138-143)."""
     d = dice_coef_perbatch(y_true[..., :num_classes], y_pred[..., :num_classes], eps)
-    return d + LAMBDA_BCE * _reference_weighted_bce_perbatch(y_true, y_pred)
+    return d + LAMBDA_BCE * _reference_weighted_bce_perbatch(y_true, y_pred, group=group)
 
 
 # ---------------- reconstruction and GAN / VAE losses ----------------

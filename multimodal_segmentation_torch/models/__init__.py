@@ -6,6 +6,7 @@ import torch
 from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.models.dafnet import DAFNet
 from multimodal_segmentation_torch.models.mmsdnet import MMSDNet
+from multimodal_segmentation_torch.utils.nan_checks import install_nan_checks
 
 MODELS = {"dafnet": DAFNet, "mmsdnet": MMSDNet}
 
@@ -19,14 +20,19 @@ def full_f32_matmuls():
 
 def build_model(conf, device="cuda", seed=None):
     """Instantiate conf.model on `device`, its weights drawn from a
-    torch.Generator seeded with `seed` (default conf.seed)."""
+    torch.Generator seeded with `seed` (default conf.seed); under
+    conf.debug_nans every module's output is checked for NaNs
+    (utils/nan_checks.py)."""
     dev = resolve_device(device)
     if conf.model not in MODELS:
         raise ValueError("Unknown model: %s" % conf.model)
     if dev.type == "cuda":
         full_f32_matmuls()
     gen = torch.Generator().manual_seed(conf.seed if seed is None else seed)
-    return MODELS[conf.model](conf, generator=gen).to(dev).eval()
+    model = MODELS[conf.model](conf, generator=gen).to(dev).eval()
+    if conf.debug_nans:
+        install_nan_checks(model)
+    return model
 
 
 __all__ = ["DAFNet", "MMSDNet", "build_model", "full_f32_matmuls", "resolve_device"]

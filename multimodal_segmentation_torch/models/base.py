@@ -1,10 +1,13 @@
 """Helpers shared by the models: the training losses' mask residual and
 fake-pool select (multimodal_segmentation_tpu/models/base.py:122-167), the
-device rule of the entry points, and the `predict_mask` fusion API of
-both models (models/dafnet.py:657-685, models/mmsdnet.py:334-351).
+device rule of the entry points, the `predict_mask` fusion API of both
+models (models/dafnet.py:657-685, models/mmsdnet.py:334-351) and their
+placement on a data-parallel mesh (`set_mesh`).
 """
 
 import torch
+
+from multimodal_segmentation_torch.nn.blocks import BatchNorm
 
 
 def add_residual(masks):
@@ -36,6 +39,23 @@ def subsample_pool(slot_idx, variants):
 
 
 FUSION_TYPES = ("simple", "def", "max", "maxnostn")
+
+
+class MeshMember:
+    """`set_mesh(mesh)` for a 2-D model: the one place that puts it on a
+    data-parallel mesh (parallel/mesh.py). It hands the mesh's 'data'
+    process group to every BatchNorm (global-batch statistics) and keeps
+    it as `data_group`, which the model's losses pass to the weighted
+    BCE (global class masses). Nothing else in a model knows the mesh.
+    set_mesh(None) takes the model off it."""
+
+    data_group = None
+
+    def set_mesh(self, mesh):
+        self.data_group = None if mesh is None else mesh.axis("data").group
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = self.data_group
 
 
 def resolve_device(device):

@@ -15,7 +15,11 @@ import torch
 from torch import nn
 
 from multimodal_segmentation_torch import losses
-from multimodal_segmentation_torch.models.base import MaskPredictor, subsample_pool
+from multimodal_segmentation_torch.models.base import (
+    MaskPredictor,
+    MeshMember,
+    subsample_pool,
+)
 from multimodal_segmentation_torch.nn import (
     AnatomyFuser,
     Balancer,
@@ -37,7 +41,7 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-class DAFNet(MaskPredictor, nn.Module):
+class DAFNet(MeshMember, MaskPredictor, nn.Module):
     """The nine DAFNet components, initialised from `generator` as Flax
     initialises them. train() / eval() select batch or running BatchNorm
     statistics, as the JAX package's train flag does."""
@@ -108,6 +112,7 @@ class DAFNet(MaskPredictor, nn.Module):
         """
         conf = self.conf
         nm = conf.num_masks
+        g = self.data_group
         x1, x2 = _nchw(batch["x1"]), _nchw(batch["x2"])
         z1_in, z2_in = batch["z1"], batch["z2"]
 
@@ -138,13 +143,13 @@ class DAFNet(MaskPredictor, nn.Module):
         m1_t = batch["m1"]
         if supervised:
             m2_t = batch["m2"]
-            seg = (losses.combined_dice_bce(m1_t, m1, nm)
-                   + losses.combined_dice_bce(m2_t, m2, nm)
-                   + losses.combined_dice_bce(m1_t, m1_s2_def, nm)
-                   + losses.combined_dice_bce(m2_t, m2_s1_def, nm))
+            seg = (losses.combined_dice_bce(m1_t, m1, nm, g)
+                   + losses.combined_dice_bce(m2_t, m2, nm, g)
+                   + losses.combined_dice_bce(m1_t, m1_s2_def, nm, g)
+                   + losses.combined_dice_bce(m2_t, m2_s1_def, nm, g))
         else:
-            seg = (losses.combined_dice_bce(m1_t, m1, nm)
-                   + losses.combined_dice_bce(m1_t, m1_s2_def, nm))
+            seg = (losses.combined_dice_bce(m1_t, m1, nm, g)
+                   + losses.combined_dice_bce(m1_t, m1_s2_def, nm, g))
         adv_m = sum(losses.lsgan_fool(a) for a in (adv_m1, adv_m2, adv_m1_def, adv_m2_def))
         rec = (losses.mae(x1, y1) + losses.mae(x2, y2)
                + losses.mae(x1, y1_s2_def) + losses.mae(x2, y2_s1_def))
@@ -193,6 +198,7 @@ class DAFNet(MaskPredictor, nn.Module):
         """
         conf = self.conf
         nm = conf.num_masks
+        g = self.data_group
         K = conf.n_pairs
         x1_list = [_nchw(batch["x1_pairs"][..., i : i + 1]) for i in range(K)]
         x2_list = [_nchw(batch["x2_pairs"][..., i : i + 1]) for i in range(K)]
@@ -243,12 +249,14 @@ class DAFNet(MaskPredictor, nn.Module):
         # similarity-weighted cross segmentation (dafnet.py:297-312)
         m1_t = batch["m1"]
         seg_def = sum(
-            torch.mean(w2[:, j] * losses.combined_dice_bce_perbatch(m1_t, m1_def_list[j], nm))
+            torch.mean(w2[:, j] * losses.combined_dice_bce_perbatch(m1_t, m1_def_list[j], nm,
+                                                                    group=g))
             for j in range(K))
         if supervised:
             m2_t = batch["m2"]
             seg_def = seg_def + sum(
-                torch.mean(w1[:, j] * losses.combined_dice_bce_perbatch(m2_t, m2_def_list[j], nm))
+                torch.mean(w1[:, j] * losses.combined_dice_bce_perbatch(m2_t, m2_def_list[j], nm,
+                                                                        group=g))
                 for j in range(K))
 
         # adversarial forwards, one call per discriminator
@@ -260,9 +268,9 @@ class DAFNet(MaskPredictor, nn.Module):
         _, z_rec, _, _ = self.enc_modality(cat([s1, s2]), cat([y1_zin, y2_zin]))
         z1_rec, z2_rec = split(z_rec, 2)
 
-        seg = losses.combined_dice_bce(m1_t, m1, nm)
+        seg = losses.combined_dice_bce(m1_t, m1, nm, g)
         if supervised:
-            seg = seg + losses.combined_dice_bce(m2_t, m2, nm)
+            seg = seg + losses.combined_dice_bce(m2_t, m2, nm, g)
         seg = seg + seg_def
         adv_m = sum(losses.lsgan_fool(a) for a in (adv_m1, adv_m2, adv_m1_def, adv_m2_def))
         rec = losses.mae(x1, y1) + losses.mae(x2, y2) + rec_def

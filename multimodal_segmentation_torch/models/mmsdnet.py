@@ -24,7 +24,11 @@ import torch
 from torch import nn
 
 from multimodal_segmentation_torch import losses
-from multimodal_segmentation_torch.models.base import MaskPredictor, subsample_pool
+from multimodal_segmentation_torch.models.base import (
+    MaskPredictor,
+    MeshMember,
+    subsample_pool,
+)
 from multimodal_segmentation_torch.nn import (
     AnatomyEncoder,
     AnatomyFuser,
@@ -46,7 +50,7 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
-class MMSDNet(MaskPredictor, nn.Module):
+class MMSDNet(MeshMember, MaskPredictor, nn.Module):
     """The seven MMSDNet components, initialised from `generator` as Flax
     initialises them. train() / eval() select batch or running BatchNorm
     statistics, as the JAX package's train flag does."""

@@ -6,11 +6,21 @@ training step (in-plane rotation, Dice + weighted BCE with D folded into
 the batch, optax-style Adam), whole-volume Dice evaluation, the training
 loop and the executor with its artifacts (training.csv,
 models/cardiac3d.npz in the JAX package's key layout,
-test_results_cardiac/results.csv). One device: the JAX package's
-('data', 'space') mesh layout is not ported.
+test_results_cardiac/results.csv).
+
+On a ('data', 'space') mesh (models/volumetric.py:45-142 of the JAX
+package; parallel/mesh.py) the studies are split over 'data' and the
+slice axis D over 'space': the UNet exchanges D halos and all-reduces its
+norm statistics over 'space' (nn/unet3d.py), the weighted BCE's class
+masses are summed over both axes, a step's gradients are summed over
+'space' and averaged over 'data', and the rotation angles, drawn for the
+global batch, are cut over 'data' only, so both D-halves of a study turn
+by the same angle. `predict` splits D only, so any batch size works. The
+weights stay replicated; rank 0 alone writes the executor's files.
 
 A train step on the GPU launches two nearest_warp kernels (the rotation
-of the volumes and of the masks) and nothing else of the port's kernels.
+of the volumes and of the masks) on each rank and nothing else of the
+port's kernels.
 """
 
 import csv
@@ -27,7 +37,11 @@ from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.nn.blocks import flax_init_
 from multimodal_segmentation_torch.nn.unet3d import UNet3D
 from multimodal_segmentation_torch.ops.augment import random_rotate_volumes, random_rotation_angles
+from multimodal_segmentation_torch.parallel.collectives import all_reduce_flat_, gather
+from multimodal_segmentation_torch.parallel.distributed import barrier, is_writer
+from multimodal_segmentation_torch.parallel.mesh import shard_batch
 from multimodal_segmentation_torch.utils.convert import unet3d_npz, unet3d_state_dict_from_npz
+from multimodal_segmentation_torch.utils.nan_checks import check_finite, install_nan_checks
 
 
 def _fold_depth(x):
@@ -42,20 +56,27 @@ def adam(params, lr):
 
 
 class Cardiac3DSegmenter:
-    """The 3-D UNet and its training step on one device (default the GPU).
+    """The 3-D UNet and its training step on `device` (default the GPU),
+    alone or on a ('data', 'space') `mesh`.
 
     `params` is the UNet3D module and `opt` its Adam, as `init` returns
     them; `step` updates both in place and returns them, with the loss, in
     the JAX package's (params, opt_state, loss) order."""
 
-    def __init__(self, conf, device="cuda"):
+    def __init__(self, conf, device="cuda", mesh=None):
         self.conf = conf
+        self.mesh = mesh
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             full_f32_matmuls()
         self.dtype = torch.bfloat16 if conf.compute_dtype == "bfloat16" else torch.float32
         # the angles of step() calls that pass none
         self.generator = torch.Generator(self.device).manual_seed(0)
+        self.data = self.space = None
+        if mesh is not None:
+            self.data, self.space = mesh.axis("data"), mesh.axis("space")
+        # the weighted BCE's class masses sum over both axes
+        self.mass_groups = tuple(a.group for a in (self.data, self.space) if a is not None)
 
     # ---- setup ----
 
@@ -72,8 +93,20 @@ class Cardiac3DSegmenter:
             flax_init_(net, torch.Generator().manual_seed(seed))
         else:
             net.load_state_dict(state_dict)
+        if self.space is not None and self.space.size > 1:
+            net.set_space(self.space)
+        if conf.debug_nans:
+            install_nan_checks(net)
         net = net.to(self.device)
         return net, adam(net.parameters(), conf.lr)
+
+    def shard_batch(self, batch):
+        """This rank's part of a global host batch of (B, D, ...) arrays
+        (e.g. (volumes, masks)) on the device: studies over 'data', D over
+        'space'; the whole batch without a mesh."""
+        if self.mesh is None:
+            return tuple(torch.as_tensor(a, device=self.device) for a in batch)
+        return shard_batch(self.mesh, batch, self.device, ("data", "space"))
 
     # ---- training ----
 
@@ -84,23 +117,46 @@ class Cardiac3DSegmenter:
         pred = params(volumes)
         bg = 1.0 - torch.clamp(masks.sum(-1, keepdim=True), 0.0, 1.0)
         target = torch.cat([masks, bg], dim=-1)
-        loss = combined_dice_bce(_fold_depth(target), _fold_depth(pred), self.conf.num_masks + 1)
+        loss = combined_dice_bce(_fold_depth(target), _fold_depth(pred), self.conf.num_masks + 1,
+                                 self.mass_groups)
         return loss, pred
 
     def step(self, params, opt, volumes, masks, thetas=None):
-        """One update on a (B, D, H, W, 3) batch: the rotation (when
-        rotation_range > 0; `thetas` (B,) radians, drawn from the
-        segmenter's generator if None), the loss, its gradient and one Adam
-        step. Returns (params, opt, loss) with the loss a 0-d tensor on the
-        device; the gradient stays in the parameters' .grad."""
+        """One update on a (B, D, H, W, 3) batch (on a mesh, this rank's
+        part of the global batch, as shard_batch gives it): the rotation
+        (when rotation_range > 0; `thetas` (B,) radians of the global
+        batch, drawn from the segmenter's generator if None), the loss,
+        its gradient and one Adam step. Returns (params, opt, loss) with
+        the loss (the global batch's) a 0-d tensor on the device; the
+        gradient, reduced over the mesh, stays in the parameters' .grad.
+
+        On a mesh each rank's loss is the mean over its slices, the global
+        loss the mean over the ranks: the rank backpropagates its share,
+        loss / n_space, whose gradients summed over 'space' (the halos and
+        norm statistics carry each slab's part to its neighbours) and
+        averaged over 'data' are the global loss's."""
+        data, space = self.data, self.space
         if self.conf.rotation_range > 0:
             if thetas is None:
-                thetas = random_rotation_angles(self.generator, volumes.shape[0],
-                                                self.conf.rotation_range)
+                n = volumes.shape[0] * (data.size if data is not None else 1)
+                thetas = random_rotation_angles(self.generator, n, self.conf.rotation_range)
+            if data is not None:
+                b = volumes.shape[0]
+                thetas = thetas[data.index * b:(data.index + 1) * b]
             volumes, masks = random_rotate_volumes(thetas.to(volumes.device), volumes, masks)
         opt.zero_grad(set_to_none=True)
         loss, _ = self.loss_fn(params, volumes, masks)
-        loss.backward()
+        if self.mesh is None:
+            loss.backward()
+        else:
+            (loss / space.size).backward()
+            grads = [p.grad for p in params.parameters()]
+            all_reduce_flat_(grads, (space.group, data.group), data.size)
+            loss = loss.detach().reshape(1) / space.size
+            all_reduce_flat_([loss], (space.group, data.group), data.size)
+            loss = loss[0]
+        if self.conf.debug_nans:
+            check_finite(loss, "the 3-D step's loss")
         opt.step()
         return params, opt, loss.detach()
 
@@ -109,8 +165,14 @@ class Cardiac3DSegmenter:
     @torch.inference_mode()
     def predict(self, params, volumes):
         """Class probabilities (B, D, H, W, num_masks + 1), f32, on the
-        device, of a (B, D, H, W, 3) array or tensor."""
-        return params(torch.as_tensor(volumes, device=self.device))
+        device, of a (B, D, H, W, 3) array or tensor. On a mesh with D
+        split over 'space' each rank runs its D-slab of every study and
+        the slabs are gathered: any batch size works, as the JAX
+        package's predict shards the depth only (:138-142)."""
+        if self.space is None or self.space.size == 1:
+            return params(torch.as_tensor(volumes, device=self.device))
+        x = shard_batch(self.mesh, volumes, self.device, (None, "space"))
+        return gather(params(x), 1, self.space)
 
     def evaluate(self, params, volumes, masks, batch=2):
         """Per-study whole-volume binarised Dice of the foreground classes,
@@ -124,25 +186,27 @@ class Cardiac3DSegmenter:
         return float(np.mean(scores))
 
 
-def train_cardiac3d(conf, epochs=None, seed=0, device="cuda"):
+def train_cardiac3d(conf, epochs=None, seed=0, device="cuda", mesh=None):
     """The volumetric training loop (models/volumetric.py:240-277) over the
     cardiac loader's training split of conf.split: each epoch a
     np.random.RandomState(seed) permutation of the studies in batches of
     conf.batch_size (the tail dropped), then evaluate(batch=B) on the
     validation split. The weights start from init(seed); the angles come
-    from the segmenter's generator, seeded with `seed`.
-    Returns (model, params, history), history one {'epoch', 'loss',
-    'val_dice'} an epoch; model.epoch_seconds holds one {'training',
-    'validation'} an epoch."""
+    from the segmenter's generator, seeded with `seed`. On `mesh` every
+    rank reads the same global batches and copies only its part to its
+    device. Returns (model, params, history), history one {'epoch',
+    'loss', 'val_dice'} an epoch; model.epoch_seconds holds one
+    {'training', 'validation'} an epoch."""
     loader = init_loader("cardiac", shape=conf.volume_shape[:3])
     xs, ys = loader.load_volumes(conf.split, "training")
     xv, yv = loader.load_volumes(conf.split, "validation")
 
-    model = Cardiac3DSegmenter(conf, device=device)
+    model = Cardiac3DSegmenter(conf, device=device, mesh=mesh)
     model.generator.manual_seed(seed)
     params, opt = model.init(seed)
-    xs_dev = torch.from_numpy(xs).to(model.device)
-    ys_dev = torch.from_numpy(ys).to(model.device)
+    if mesh is None:
+        # the whole training split on the device, batches indexed there
+        xs, ys = torch.from_numpy(xs).to(model.device), torch.from_numpy(ys).to(model.device)
 
     B = conf.batch_size
     rng = np.random.RandomState(seed)
@@ -150,12 +214,15 @@ def train_cardiac3d(conf, epochs=None, seed=0, device="cuda"):
     model.epoch_seconds = []
     for epoch in range(epochs or conf.epochs):
         t = time.perf_counter()
-        order = torch.from_numpy(rng.permutation(xs.shape[0])).to(model.device)
+        order = rng.permutation(xs.shape[0])
+        if mesh is None:
+            order = torch.from_numpy(order).to(model.device)
         n = (xs.shape[0] // B) * B
         losses = []
         for i in range(0, n, B):
             idx = order[i:i + B]
-            params, opt, loss = model.step(params, opt, xs_dev[idx], ys_dev[idx])
+            vb, mb = model.shard_batch((xs[idx], ys[idx]))
+            params, opt, loss = model.step(params, opt, vb, mb)
             losses.append(loss)
         loss = float(np.mean(torch.stack(losses).cpu().numpy()))
         t_val = time.perf_counter()
@@ -171,11 +238,14 @@ class Cardiac3DExecutor:
     with the 2-D executors' artifact contract: <folder>/training.csv,
     <folder>/models/cardiac3d.npz (the JAX package's keys, so either
     package restores the other's file) and
-    <folder>/test_results_cardiac/results.csv."""
+    <folder>/test_results_cardiac/results.csv. On `mesh` every rank
+    trains and predicts, rank 0 alone writes the files and the others
+    wait for it."""
 
-    def __init__(self, conf, device="cuda"):
+    def __init__(self, conf, device="cuda", mesh=None):
         self.conf = conf
-        self.model = Cardiac3DSegmenter(conf, device=device)
+        self.mesh = mesh
+        self.model = Cardiac3DSegmenter(conf, device=device, mesh=mesh)
         self.device = self.model.device
         self.params = None
         self.epoch_seconds = []
@@ -183,16 +253,18 @@ class Cardiac3DExecutor:
     def train(self):
         conf = self.conf
         model, self.params, history = train_cardiac3d(
-            conf, epochs=conf.epochs, seed=conf.seed, device=self.device)
+            conf, epochs=conf.epochs, seed=conf.seed, device=self.device, mesh=self.mesh)
         self.epoch_seconds = model.epoch_seconds
-        os.makedirs(conf.folder, exist_ok=True)
-        with open(os.path.join(conf.folder, "training.csv"), "w", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=["epoch", "loss", "val_dice"])
-            w.writeheader()
-            w.writerows(history)
-        os.makedirs(os.path.join(conf.folder, "models"), exist_ok=True)
-        np.savez(os.path.join(conf.folder, "models", "cardiac3d.npz"),
-                 **unet3d_npz(self.params.state_dict()))
+        if is_writer(self.mesh):
+            os.makedirs(conf.folder, exist_ok=True)
+            with open(os.path.join(conf.folder, "training.csv"), "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=["epoch", "loss", "val_dice"])
+                w.writeheader()
+                w.writerows(history)
+            os.makedirs(os.path.join(conf.folder, "models"), exist_ok=True)
+            np.savez(os.path.join(conf.folder, "models", "cardiac3d.npz"),
+                     **unet3d_npz(self.params.state_dict()))
+        barrier(self.mesh)
 
     def test(self):
         """Per-study Dice of the test split (overall and per class) into
@@ -206,7 +278,6 @@ class Cardiac3DExecutor:
         xs, ys = loader.load_volumes(conf.split, "test")
         vols = loader.get_volumes_for_split(conf.split, "test")
         outdir = os.path.join(conf.folder, "test_results_cardiac")
-        os.makedirs(outdir, exist_ok=True)
         rows = []
         for i, vid in enumerate(vols):
             pred = self.model.predict(self.params, xs[i:i + 1]).cpu().numpy()[0]
@@ -215,10 +286,13 @@ class Cardiac3DExecutor:
                    for k in range(conf.num_masks)]
             rows.append({"volume": vid, "dice": d,
                          **{"dice_c%d" % k: per[k] for k in range(conf.num_masks)}})
-        with open(os.path.join(outdir, "results.csv"), "w", newline="") as f:
-            w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
-            w.writeheader()
-            w.writerows(rows)
         mean = float(np.mean([r["dice"] for r in rows]))
-        print("cardiac3d - Dice score: %.3f" % mean)
+        if is_writer(self.mesh):
+            os.makedirs(outdir, exist_ok=True)
+            with open(os.path.join(outdir, "results.csv"), "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+                w.writeheader()
+                w.writerows(rows)
+            print("cardiac3d - Dice score: %.3f" % mean)
+        barrier(self.mesh)
         return mean

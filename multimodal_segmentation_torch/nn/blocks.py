@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_segmentation_torch.parallel.collectives import mean_over
+
 # std of a unit normal truncated to [-2, 2]: Flax's variance_scaling
 # 'truncated_normal' divides by it
 _TRUNC_STD = 0.87962566103423978
@@ -106,7 +108,18 @@ class BatchNorm(nn.Module):
     f32 mean and biased variance max(E[x^2] - mean^2, 0). It then updates
     the running statistics once, in place and outside autograd, from the
     mean of the group moments. nn.BatchNorm2d keeps an unbiased running
-    variance and knows no groups, so it is not used.
+    variance and knows no groups, so it is not used; nor is
+    nn.SyncBatchNorm, which keeps one too.
+
+    Data parallelism: with `group` (the mesh's 'data' process group, set
+    by the model's set_mesh) the train-mode moments are those of the
+    global batch, as GSPMD makes them in the JAX package: each rank's
+    per-group (G, C) mean and E[x^2] are averaged over the group with a
+    differentiable all-reduce (parallel/collectives.py), then the biased
+    variance is formed from them. Every rank holds the same number of
+    rows (shard_batch), so the mean of the ranks' moments is the global
+    one, and over one rank it is the rank's own, bit for bit. Without a
+    group nothing changes.
     """
 
     momentum = 0.99
@@ -114,6 +127,7 @@ class BatchNorm(nn.Module):
     def __init__(self, channels, eps=1e-3):
         super().__init__()
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -133,8 +147,10 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = xg.float()
             mean = xf.mean(dim=(0, 3, 4))                    # (G, C)
-            var = torch.maximum(xf.square().mean(dim=(0, 3, 4)) - mean.square(),
-                                torch.zeros((), device=x.device))
+            sq = xf.square().mean(dim=(0, 3, 4))
+            if self.group is not None:
+                mean, sq = mean_over(torch.stack([mean, sq]), self.group)
+            var = torch.maximum(sq - mean.square(), torch.zeros((), device=x.device))
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean.mean(0))

@@ -10,6 +10,13 @@ Parameters stay f32; under a bf16 `dtype` every conv but the last
 computes in bf16, as in the JAX package. Submodules carry the Flax
 auto-names (ConvBlock3D_0, Conv_0, InstanceNorm3D_0, ...), so
 utils/convert.py maps the JAX package's parameters onto them by name.
+
+Under a ('data', 'space') mesh the slice axis D is split over 'space'
+(`UNet3D.set_space`): each 3x3x3 conv exchanges one slice of halo with
+its neighbours (parallel/halo.py), each InstanceNorm3D forms its
+statistics over the whole D axis with all-reduces over 'space', and since
+pooling and upsampling act on H and W only, D stays split through the
+whole UNet (nn/unet3d.py:16-22 of the JAX package).
 """
 
 import torch
@@ -17,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_segmentation_torch.nn.blocks import _fan, _variance_scaling_
+from multimodal_segmentation_torch.parallel.collectives import all_reduce_sum
+from multimodal_segmentation_torch.parallel.halo import sharded_conv
 
 
 class Conv3d(nn.Conv3d):
@@ -24,12 +33,14 @@ class Conv3d(nn.Conv3d):
     he_normal or lecun_normal kernel and a zero bias. With `dtype` (Flax's
     nn.Conv(dtype=d)) it casts its input, weight and bias to d and computes
     in d; without one it computes in the promoted type of its input and its
-    f32 parameters, i.e. f32."""
+    f32 parameters, i.e. f32. With `space` (a mesh Axis over which D is
+    split) it runs as the halo-exchanged sharded conv."""
 
     def __init__(self, in_ch, out_ch, k, init="lecun_normal", dtype=None):
         super().__init__(in_ch, out_ch, k, padding=k // 2)
         self.init_kind = init
         self.dtype = dtype
+        self.space = None
 
     def flax_init_(self, generator):
         kk = self.kernel_size[0] * self.kernel_size[1] * self.kernel_size[2]
@@ -39,6 +50,8 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if self.space is not None:
+            return sharded_conv(x.to(dt), self.weight.to(dt), self.bias.to(dt), self.space)
         return F.conv3d(x.to(dt), self.weight.to(dt), self.bias.to(dt), padding=self.padding)
 
 
@@ -47,19 +60,27 @@ class InstanceNorm3D(nn.Module):
     mean and biased variance in f32, epsilon 1e-3; the output in the
     input's dtype, in the JAX package's order ((x - mean) * rsqrt(var +
     eps), then scale, then bias, each cast to the input's dtype first).
-    Not nn.InstanceNorm3d, whose epsilon is 1e-5."""
+    Not nn.InstanceNorm3d, whose epsilon is 1e-5. With `space` (a mesh
+    Axis over which D is split evenly) both passes sum over the local
+    slab and all-reduce the sums over the axis, differentiably."""
 
     def __init__(self, channels, eps=1e-3):
         super().__init__()
         self.eps = eps
+        self.space = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         dt = x.dtype
         xf = x.float()
-        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-        var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+        if self.space is None:
+            mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+            var = (xf - mean).square().mean(dim=(2, 3, 4), keepdim=True)
+        else:
+            g, n = self.space.group, xf[0, 0].numel() * self.space.size
+            mean = all_reduce_sum(xf.sum(dim=(2, 3, 4), keepdim=True), g) / n
+            var = all_reduce_sum((xf - mean).square().sum(dim=(2, 3, 4), keepdim=True), g) / n
         y = (x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
         y = y * self.weight.to(dt).view(1, -1, 1, 1, 1)
         return y + self.bias.to(dt).view(1, -1, 1, 1, 1)
@@ -120,6 +141,13 @@ class UNet3D(nn.Module):
             setattr(self, "Conv_%d" % i,
                     Conv3d(widths[level + 1], widths[level], 3, init="he_normal", dtype=dtype))
         setattr(self, "Conv_%d" % downsample, Conv3d(widths[0], out_channels, 1))
+
+    def set_space(self, axis):
+        """Split D over mesh Axis `axis` (None: not split): every conv and
+        norm takes it."""
+        for m in self.modules():
+            if isinstance(m, (Conv3d, InstanceNorm3D)):
+                m.space = axis
 
     def forward(self, x):
         x = x.permute(0, 4, 1, 2, 3).contiguous()

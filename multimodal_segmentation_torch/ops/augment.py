@@ -125,7 +125,10 @@ def random_rotate_volumes(thetas, volumes, masks):
     (B,) radians, e.g. from random_rotation_angles), shared by its D
     slices and its masks. As in the JAX package, the volumes and the masks
     each go through rotate_batch on (B*D, H, W, C): one nearest_warp
-    launch each on the GPU. Not differentiable."""
+    launch each on the GPU. Not differentiable. On a ('data', 'space')
+    mesh it takes a rank's part, (B_local, D_local, ...), with the angles
+    of its studies: each D-slab turns by its study's angle, and the
+    kernel sees (B_local * D_local, H, W, C)."""
     B, D = volumes.shape[0], volumes.shape[1]
     th = thetas.repeat_interleave(D)
 

@@ -15,6 +15,17 @@ Everything runs on `device`, 'cuda' unless the caller passes 'cpu'. Each
 step's batch is on the device before the step asks for it
 (data/prefetch.py); the step's metrics stay on the device until the
 epoch's end, and validation moves only its Dice scalars to the host.
+
+Data parallelism (executor.py:38-47, 184-193 of the JAX package): with a
+`mesh` (parallel/mesh.py) every rank reads the same global batches in the
+same order from the same seed and prefetches only its rows; the steps
+average gradients and metrics over 'data', so the weights stay
+replicated. Every rank validates them, and checks that its logs equal the
+other ranks', so early stopping, SWA and the balancer's weights decide
+the same everywhere. Rank 0 alone writes the files (training.csv,
+test_error.txt, checkpoints, the component export, images, the test's
+results); the others wait for it at a barrier. A resume reads the same
+checkpoint on every rank.
 """
 
 import contextlib
@@ -24,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_segmentation_torch import losses
 from multimodal_segmentation_torch.data.batches import TrainingData
@@ -32,6 +44,7 @@ from multimodal_segmentation_torch.data.prefetch import prefetch_to_device
 from multimodal_segmentation_torch.eval.tester import ModelTester
 from multimodal_segmentation_torch.models import full_f32_matmuls
 from multimodal_segmentation_torch.models.base import resolve_device
+from multimodal_segmentation_torch.parallel.distributed import barrier, is_writer
 from multimodal_segmentation_torch.train.early_stopping import EarlyStopping
 from multimodal_segmentation_torch.train.state import create_train_state, swa_copy
 from multimodal_segmentation_torch.train.steps import make_steps
@@ -49,11 +62,14 @@ class Executor:
       conf: the ExperimentConfig; conf.folder receives every artifact.
       model: the model, its weights already on `device`.
       device: where training runs; 'cuda' raises without a card.
+      mesh: a ('data', 'model') mesh for data parallelism, or None.
     """
 
-    def __init__(self, conf, model, device="cuda"):
+    def __init__(self, conf, model, device="cuda", mesh=None):
         self.conf = conf
         self.model = model
+        self.mesh = mesh
+        self.writes = is_writer(mesh)
         self.device = resolve_device(device)
         w_dev = next(model.parameters()).device
         if w_dev != self.device:
@@ -63,7 +79,7 @@ class Executor:
         loader_kwargs = {"hw": conf.input_hw} if conf.dataset_name == "synthetic" else {}
         self.loader = init_loader(conf.dataset_name, **loader_kwargs)
         self.loader.modalities = list(conf.modality)
-        self.steps = make_steps(model, conf)
+        self.steps = make_steps(model, conf, mesh)
         self.ckpt = CheckpointManager(conf.folder)
         self.train_data = None
         self.early_stopping = None
@@ -81,7 +97,8 @@ class Executor:
         self.batches = int(np.ceil(self.train_data.data_len / conf.batch_size))
         if conf.steps_per_epoch:
             self.batches = min(self.batches, conf.steps_per_epoch)
-        self.batch_iter = prefetch_to_device(self.train_data.assembled_batches(), self.device)
+        self.batch_iter = prefetch_to_device(self.train_data.assembled_batches(), self.device,
+                                             self.mesh)
 
     # ------------------------------------------------------------ training
 
@@ -112,6 +129,20 @@ class Executor:
             torch.cuda.synchronize(self.device)
         seconds[part] = time.perf_counter() - t
 
+    def _check_replicated(self, logs):
+        """Under a mesh, raise unless every rank's `logs` are this rank's:
+        the decisions taken from them must be the same everywhere."""
+        if self.mesh is None or not dist.is_initialized():
+            return
+        t = torch.tensor([logs[k] for k in sorted(logs)], dtype=torch.float64,
+                         device=self.device)
+        hi, lo = t.clone(), t.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        if not torch.equal(hi, lo):
+            raise RuntimeError("the ranks' logs differ: %s, spread %s"
+                               % (sorted(logs), (hi - lo).tolist()))
+
     def _profiler(self):
         from torch.profiler import ProfilerActivity, profile
 
@@ -126,15 +157,17 @@ class Executor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
-        folder = os.path.join(self.conf.folder, "profile")
-        os.makedirs(folder, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(folder, "trace.json"))
+        if self.writes:
+            folder = os.path.join(self.conf.folder, "profile")
+            os.makedirs(folder, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(folder, "trace.json"))
 
     def train(self):
         conf = self.conf
         os.makedirs(conf.folder, exist_ok=True)
         self.init_train_data()
         ts, start_epoch = self.create_state()
+        writes = self.writes
 
         loss_logger = LossLogger(conf.folder)
         stream = self.train_data.gen_labelled or self.train_data.gen_unlabelled
@@ -174,25 +207,28 @@ class Executor:
                         for k, v in epoch_metrics.items()}
             with self._timed(seconds, "validation"):
                 logs.update(self.validate(ts))
-            # training.csv before the checkpoint: a resumed run re-runs the
-            # epochs after its checkpoint, and replay_csv de-duplicates
-            loss_logger.on_epoch_end(epoch, logs)
+            self._check_replicated(logs)
             log.info("Epoch %d/%d: %s", epoch, conf.epochs,
                      ", ".join("%s=%.4f" % (k, v) for k, v in sorted(logs.items())))
-            # test_error.txt: "epoch, -dice" each epoch (callbacks/
-            # image_callback.py:64-66), the validation Dice in its place
-            with open(os.path.join(conf.folder, "test_error.txt"), "a+") as f:
-                f.write("%d, %.3f\n" % (epoch, logs["val_loss"] - 1.0))
+            if writes:
+                # training.csv before the checkpoint: a resumed run re-runs
+                # the epochs after its checkpoint, and replay_csv
+                # de-duplicates
+                loss_logger.on_epoch_end(epoch, logs)
+                # test_error.txt: "epoch, -dice" each epoch (callbacks/
+                # image_callback.py:64-66), the validation Dice in its place
+                with open(os.path.join(conf.folder, "test_error.txt"), "a+") as f:
+                    f.write("%d, %.3f\n" % (epoch, logs["val_loss"] - 1.0))
 
-            if epoch % img_every == 0:
+            if writes and epoch % img_every == 0:
                 with self._timed(seconds, "images"), self.eval_weights(ts):
                     img_cb.on_epoch_end(epoch)
             stopping = es.update(epoch, logs)
             last = epoch + 1 == conf.epochs
-            if epoch % ckpt_every == 0 or stopping or last:
+            if writes and (epoch % ckpt_every == 0 or stopping or last):
                 with self._timed(seconds, "checkpoint"):
                     self.ckpt.save(epoch, ts)
-            if epoch % comp_every == 0 or stopping or last:
+            if writes and (epoch % comp_every == 0 or stopping or last):
                 with self._timed(seconds, "export"):
                     self.ckpt.save_component_weights(os.path.join(conf.folder, "models"),
                                                      self.eval_params(ts))
@@ -201,7 +237,10 @@ class Executor:
             if stopping:
                 log.info("Finished training from early stopping criterion")
                 self.on_train_end(ts)
-                self.ckpt.save(epoch + 1, ts)
+                if writes:
+                    self.ckpt.save(epoch + 1, ts)
+            barrier(self.mesh)
+            if stopping:
                 break
         if prof is not None:
             self._stop_profiler(prof)
@@ -282,9 +321,13 @@ class Executor:
     # -------------------------------------------------------------- testing
 
     def test(self):
-        """ModelTester on the eval weights of the final (or restored) state."""
-        with self.eval_weights(self.final_state):
-            ModelTester(self.model, self.conf, device=self.device).run()
+        """ModelTester on the eval weights of the final (or restored) state;
+        under a mesh on rank 0 alone, which writes its results (the
+        weights are the same on every rank)."""
+        if self.writes:
+            with self.eval_weights(self.final_state):
+                ModelTester(self.model, self.conf, device=self.device).run()
+        barrier(self.mesh)
 
 
 class DAFNetExecutor(Executor):
@@ -373,8 +416,9 @@ class MMSDNetExecutor(Executor):
         return batch
 
 
-def make_executor(conf, model, device="cuda"):
-    """The executor of conf.model."""
+def make_executor(conf, model, device="cuda", mesh=None):
+    """The executor of conf.model; `mesh` for data parallelism
+    (executor.py:559-562 of the JAX package)."""
     if conf.model == "mmsdnet":
-        return MMSDNetExecutor(conf, model, device)
-    return DAFNetExecutor(conf, model, device)
+        return MMSDNetExecutor(conf, model, device, mesh)
+    return DAFNetExecutor(conf, model, device, mesh)

@@ -14,11 +14,23 @@ Every random draw of a step is in `noise` (see `draw_noise`,
 none, it is drawn from the train state's torch.Generator. The JAX package
 draws the same parts from its key splits; its streams cannot be replayed
 in torch, so the tests rebuild them there and pass them in as `noise`.
+
+Data parallelism (train/steps.py:34-56 of the JAX package): with a `mesh`
+(parallel/mesh.py) the batch holds this rank's rows of the global batch
+(shard_batch), the model is put on the mesh (global BatchNorm statistics
+and class masses), and the step is the one-process step on the global
+batch: the noise is drawn, or taken, at the global batch size and cut to
+this rank's rows; each optimizer's gradients are averaged over 'data' in
+one flat all-reduce before its Adam step, and so are the metrics. The
+train state stays replicated: parameters, Adam moments, BatchNorm
+statistics, spectral `u` and the generator.
 """
 
 import torch
 
 from multimodal_segmentation_torch.models.base import add_residual
+from multimodal_segmentation_torch.parallel.collectives import all_reduce_flat_
+from multimodal_segmentation_torch.utils.nan_checks import check_finite
 from multimodal_segmentation_torch.ops.augment import random_rotate_batch, random_rotation_angles
 
 
@@ -98,18 +110,68 @@ def _on_device(model, batch):
     return dev, {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
 
 
-def _adam_step(opt, params, grads):
-    """One optimizer step with `grads`. A parameter that the loss does not
-    reach gets a zero gradient, as jax.grad gives it, so its Adam step
-    count advances with the others and its value stays."""
+def _adam_step(opt, params, grads, data=None):
+    """One optimizer step with `grads`, first averaged over mesh axis
+    `data` when there is one (one flat all-reduce for the list). A
+    parameter that the loss does not reach gets a zero gradient, as
+    jax.grad gives it, so its Adam step count advances with the others
+    and its value stays."""
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    if data is not None:
+        all_reduce_flat_(grads, data.group, data.size)
     for p, g in zip(params, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+        p.grad = g
     opt.step()
     for p in params:
         p.grad = None
 
 
-class DAFNetSteps:
+class _Steps:
+    """What the steps of both models share: the model, the configuration
+    and, under a mesh, its 'data' axis."""
+
+    def __init__(self, model, conf, mesh=None):
+        self.model = model
+        self.conf = conf
+        self.data = None if mesh is None else mesh.axis("data")
+        model.set_mesh(mesh)
+
+    def _global(self, rows):
+        """The global batch size of a batch of `rows` on this rank."""
+        return rows if self.data is None else rows * self.data.size
+
+    def _local(self, noise):
+        """This rank's rows of global `noise`: a part of k x B_global rows
+        (k = 1, 2 or 6: samples stacked sample-major, ops/batching.py)
+        gives rows [k r b, k (r + 1) b), b = B_global / ranks."""
+        if self.data is None:
+            return noise
+        i, n = self.data.index, self.data.size
+
+        def cut(t):
+            k = t.shape[0] // n
+            return t[i * k:(i + 1) * k]
+        return {key: [cut(t) for t in v] if isinstance(v, list) else cut(v)
+                for key, v in noise.items()}
+
+    def _adam(self, opt, params, grads):
+        _adam_step(opt, params, grads, self.data)
+
+    def _metrics(self, metrics):
+        """The detached metrics; under a mesh in f32, averaged over 'data'
+        (one all-reduce). Under conf.debug_nans a non-finite one raises."""
+        if self.data is None:
+            metrics = {k: v.detach() for k, v in metrics.items()}
+        else:
+            values = torch.stack([v.detach().float() for v in metrics.values()])
+            all_reduce_flat_([values], self.data.group, self.data.size)
+            metrics = dict(zip(metrics, values.unbind()))
+        if self.conf.debug_nans:
+            check_finite(metrics, "the step's metrics")
+        return metrics
+
+
+class DAFNetSteps(_Steps):
     """DAFNet steps: `step_supervised(ts, batch, noise=None)` and
     `step_unsupervised(...)` each return (ts, metrics), with the metric
     names of the JAX package's step. `ts` is updated in place.
@@ -119,12 +181,9 @@ class DAFNetSteps:
     expert pair first; m1 and, supervised, m2 (B, H, W, num_masks) without
     the residual channel; dm1, dm2 (real masks of the mask discriminator)
     and dx1, dx2 (pool images of the image discriminators and the fake
-    pools). The model is left in eval mode.
+    pools); under `mesh`, this rank's rows of each, and `noise` that of
+    the global batch. The model is left in eval mode.
     """
-
-    def __init__(self, model, conf):
-        self.model = model
-        self.conf = conf
 
     def step_supervised(self, ts, batch, noise=None):
         return self._step(ts, batch, True, noise)
@@ -136,10 +195,10 @@ class DAFNetSteps:
         conf = self.conf
         model = ts.model
         dev, batch = _on_device(model, batch)
-        B = batch["dx1"].shape[0]
+        B = self._global(batch["dx1"].shape[0])
         if noise is None:
             noise = draw_noise(ts.generator, B, conf.num_z, conf.rotation_range)
-        noise = _noise_on(noise, dev)
+        noise = self._local(_noise_on(noise, dev))
 
         # rotation augmentation: one shared angle per sample across the
         # images and masks of one draw (base_executor.py:103-110)
@@ -162,7 +221,7 @@ class DAFNetSteps:
         gen_params = model.component_parameters(model.GEN_COMPONENTS)
         gen_loss = model.gen_loss_automated if conf.automatedpairing else model.gen_loss_expert
         total, gen_metrics = gen_loss(batch, noise["gen_eps"], supervised)
-        _adam_step(ts.opt_gen, gen_params,
+        self._adam(ts.opt_gen, gen_params,
                    torch.autograd.grad(total, gen_params, allow_unused=True))
 
         # fake pools for every discriminator from one forward of the
@@ -179,7 +238,7 @@ class DAFNetSteps:
         dis_m = []
         for real, fake in ((batch["dm1"], fake_m1), (batch["dm2"], fake_m2)):
             loss, m = model.d_mask_pair_loss(real[..., :nm], fake)
-            _adam_step(ts.opt_disc["d_mask"], d_params, torch.autograd.grad(loss, d_params))
+            self._adam(ts.opt_disc["d_mask"], d_params, torch.autograd.grad(loss, d_params))
             dis_m.append(m["dis_M"])
 
         # both image discriminators, each with its own Adam
@@ -187,15 +246,15 @@ class DAFNetSteps:
         p2 = list(model.d_image2.parameters())
         loss, di_metrics = model.d_image_pair_loss(batch["dx1"], batch["dx2"], fake_y1, fake_y2)
         grads = torch.autograd.grad(loss, p1 + p2)
-        _adam_step(ts.opt_disc["d_image1"], p1, grads[: len(p1)])
-        _adam_step(ts.opt_disc["d_image2"], p2, grads[len(p1):])
+        self._adam(ts.opt_disc["d_image1"], p1, grads[: len(p1)])
+        self._adam(ts.opt_disc["d_image2"], p2, grads[len(p1):])
 
         metrics = {**gen_metrics, "dis_M": (dis_m[0] + dis_m[1]) / 2.0, **di_metrics}
         ts.step += 1
-        return ts, {k: v.detach() for k, v in metrics.items()}
+        return ts, self._metrics(metrics)
 
 
-class MMSDNetSteps:
+class MMSDNetSteps(_Steps):
     """MMSDNet steps (train/steps.py:222-299): `step_supervised(ts, batch,
     noise=None)` and `step_unsupervised(...)` each run one generator update
     and then one Z-regressor update on the detached, eval-mode anatomies
@@ -209,14 +268,14 @@ class MMSDNetSteps:
     batches: dm (B, H, W, num_masks), the real masks, and dx1, dx2, the
     images of the fake pool. `noise` is draw_mmsdnet_noise's for the
     generator steps and draw_mmsdnet_disc_noise's for the discriminator.
+    Under `mesh` as DAFNetSteps.
     """
 
-    def __init__(self, model, conf):
+    def __init__(self, model, conf, mesh=None):
         if conf.automatedpairing:
             raise ValueError("automated pairing is a DAFNet path; MMSDNet trains on the "
                              "expert pairs")
-        self.model = model
-        self.conf = conf
+        super().__init__(model, conf, mesh)
 
     def step_supervised(self, ts, batch, noise=None):
         return self._gen_step(ts, batch, True, noise)
@@ -229,9 +288,9 @@ class MMSDNetSteps:
         model = ts.model
         dev, batch = _on_device(model, batch)
         if noise is None:
-            noise = draw_mmsdnet_noise(ts.generator, batch["x1"].shape[0], conf.num_z,
-                                       conf.rotation_range)
-        noise = _noise_on(noise, dev)
+            noise = draw_mmsdnet_noise(ts.generator, self._global(batch["x1"].shape[0]),
+                                       conf.num_z, conf.rotation_range)
+        noise = self._local(_noise_on(noise, dev))
         if conf.rotation_range > 0:
             keys = ["x1", "x2", "m1"] + (["m2"] if supervised else [])
             batch.update(zip(keys, random_rotate_batch([batch[k] for k in keys],
@@ -243,7 +302,7 @@ class MMSDNetSteps:
         model.train()
         gen_params = model.component_parameters(model.GEN_COMPONENTS)
         total, gen_metrics = model.gen_loss(batch, noise["gen_eps"], supervised)
-        _adam_step(ts.opt_gen, gen_params,
+        self._adam(ts.opt_gen, gen_params,
                    torch.autograd.grad(total, gen_params, allow_unused=True))
 
         # the Z-regressor: its own Adam over the decoder and the modality
@@ -253,19 +312,19 @@ class MMSDNetSteps:
         s_list = model.make_z_regressor_anatomies(batch["x1"], batch["x2"])
         zreg_params = model.component_parameters(model.ZREG_COMPONENTS)
         z_total, z_metrics = model.z_regressor_loss(s_list, noise["zreg_z"])
-        _adam_step(ts.opt_zreg, zreg_params,
+        self._adam(ts.opt_zreg, zreg_params,
                    torch.autograd.grad(z_total, zreg_params, allow_unused=True))
         ts.step += 1
-        return ts, {k: v.detach() for k, v in {**gen_metrics, **z_metrics}.items()}
+        return ts, self._metrics({**gen_metrics, **z_metrics})
 
     def step_discriminator(self, ts, batch, noise=None):
         conf = self.conf
         model = ts.model
         dev, batch = _on_device(model, batch)
         if noise is None:
-            noise = draw_mmsdnet_disc_noise(ts.generator, batch["dm"].shape[0],
+            noise = draw_mmsdnet_disc_noise(ts.generator, self._global(batch["dm"].shape[0]),
                                             conf.rotation_range)
-        noise = _noise_on(noise, dev)
+        noise = self._local(_noise_on(noise, dev))
         if conf.rotation_range > 0:
             for group, angles in ((["dm"], noise["angles"][0]),
                                   (["dx1", "dx2"], noise["angles"][1])):
@@ -274,12 +333,12 @@ class MMSDNetSteps:
         fake = model.make_fake_masks(batch["dx1"], batch["dx2"], noise["pool_idx"])
         d_params = list(model.d_mask.parameters())
         loss, metrics = model.d_mask_loss(batch["dm"][..., : conf.num_masks], fake)
-        _adam_step(ts.opt_disc["d_mask"], d_params, torch.autograd.grad(loss, d_params))
+        self._adam(ts.opt_disc["d_mask"], d_params, torch.autograd.grad(loss, d_params))
         ts.step += 1
-        return ts, {k: v.detach() for k, v in metrics.items()}
+        return ts, self._metrics(metrics)
 
 
-def make_steps(model, conf):
+def make_steps(model, conf, mesh=None):
     if conf.model == "mmsdnet":
-        return MMSDNetSteps(model, conf)
-    return DAFNetSteps(model, conf)
+        return MMSDNetSteps(model, conf, mesh)
+    return DAFNetSteps(model, conf, mesh)

@@ -133,3 +133,48 @@ def test_cli_defaults_to_the_card_and_raises_for_unported_models(tiny_preset, tm
     assert type(ex).__name__ == "MMSDNetExecutor" and ex.final_state.opt_zreg is not None
     assert len([f for _, _, fs in os.walk(tmp_path / ex.conf.folder) for f in fs
                 if f == "results.csv"]) == 12
+
+
+# ------------------------------------------------------- debug_nans (C2)
+
+def _nan_in_segmentor(conf):
+    """conf's model on the CPU with a NaN in the segmentor's first conv."""
+    from multimodal_segmentation_torch.models import build_model
+
+    model = build_model(conf, device="cpu")
+    with torch.no_grad():
+        model.segmentor.Conv_0.weight[0, 0, 0, 0] = float("nan")
+    return model
+
+
+def test_debug_nans_raises_for_a_forward_nan_under_no_grad():
+    """As jax_debug_nans: under debug_nans a NaN that a forward makes under
+    torch.no_grad() (predict_mask runs in inference mode) raises
+    FloatingPointError at the first module whose output holds it; without
+    debug_nans the same forward returns the NaNs, which anomaly mode never
+    sees (it watches backward functions only)."""
+    import numpy as np
+
+    conf = dataclasses.replace(tconfig.tiny_test_config(), debug_nans=True)
+    images = [np.random.RandomState(0).rand(2, 32, 32, 1).astype(np.float32)] * 2
+    with torch.no_grad(), pytest.raises(FloatingPointError, match=r"segmentor\.Conv_0"):
+        _nan_in_segmentor(conf).predict_mask(1, "simple", images, device="cpu")
+    quiet = _nan_in_segmentor(dataclasses.replace(conf, debug_nans=False))
+    with torch.no_grad(), torch.autograd.detect_anomaly():
+        out = quiet.predict_mask(1, "simple", images, device="cpu")
+    assert torch.isnan(out).any()
+
+
+def test_debug_nans_raises_in_validation(tmp_path):
+    """The executor's validation (predict_mask on the SWA weights, under
+    inference mode) raises FloatingPointError for a NaN in the weights
+    under debug_nans."""
+    from multimodal_segmentation_torch.train import create_train_state
+    from multimodal_segmentation_torch.train.executor import make_executor
+
+    conf = dataclasses.replace(tconfig.tiny_test_config(), debug_nans=True,
+                               dataset_name="synthetic", folder=str(tmp_path))
+    model = _nan_in_segmentor(conf)
+    ex = make_executor(conf, model, device="cpu")
+    with pytest.raises(FloatingPointError, match="segmentor"):
+        ex.validate(create_train_state(model, conf))

@@ -994,3 +994,95 @@ def test_tiny_3d_step_on_the_card_matches_cpu(cuda, dtype):
         if n not in exempt:
             d = (card[1][n] - g).abs().max() / g.abs().max()
             assert d <= lim, (n, d.item())
+
+
+# ------------------------------------------------------- data parallelism
+
+def test_each_kernel_splits_over_the_batch_on_the_card(cuda):
+    """The GSPMD batch rules' promise (pallas_kernels.py:446-594 of the
+    JAX package) for the kernels: B1, B2, B3 (rotate_group and
+    nearest_warp) and B4 on the halves of a batch, concatenated, equal the
+    whole call bit for bit; B2's grad_vol, which adds with f32 atomics,
+    within 1e-6 of its largest entry."""
+    r = np.random.RandomState(11)
+    B, H, W = 6, 192, 192
+    vol, off = _inputs(cuda, B=B, H=H, W=W, C=8, scale=0.3, seed=11)
+    wv = tps.tps_coefficients(off)
+    cp = tps.control_grid((5, 5), cuda)
+    locs = tps.tps_sample_locations(off, (H, W))
+    g = torch.from_numpy(r.randn(B, H, W, 8).astype(np.float32)).to(cuda)
+    arrays = [torch.from_numpy(r.rand(B, H, W, c).astype(np.float32)).to(cuda) for c in (1, 1, 4)]
+    th = torch.from_numpy(r.uniform(-0.35, 0.35, B).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(r.rand(B, 8, H, W).astype(np.float32)).to(cuda)
+    calls = {
+        "tps_warp_fwd": lambda s: [cuda_kernels.tps_warp_fwd(vol[s], wv[s], cp)],
+        "tps_warp_bwd": lambda s: list(cuda_kernels.tps_warp_bwd(vol[s], locs[s].contiguous(),
+                                                                 g[s])),
+        "rotate_group": lambda s: cuda_kernels.rotate_group(
+            [a[s].contiguous() for a in arrays], torch.cos(th[s]), torch.sin(th[s])),
+        "nearest_warp": lambda s: [cuda_kernels.nearest_warp(
+            vol[s].contiguous(), augment.rotation_locations(th[s], H, W))],
+        "round_ste": lambda s: [cuda_kernels.round_ste(x[s].contiguous())],
+    }
+    for name, call in calls.items():
+        whole = call(slice(None))
+        halves = [call(slice(0, 3)), call(slice(3, 6))]
+        torch.cuda.synchronize()
+        for k, w in enumerate(whole):
+            cat = torch.cat([halves[0][k], halves[1][k]])
+            if name == "tps_warp_bwd" and k == 0:
+                # grad_vol adds with f32 atomics, in an order that changes
+                # from run to run (csrc/tps_warp_bwd.cu): a few ulp
+                assert (cat - w).abs().max().item() <= 1e-6 * w.abs().max().item(), name
+            else:
+                assert torch.equal(cat, w), name
+
+
+def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
+    """An NCCL process group of one rank, a data = 1 mesh: two tiny expert
+    steps through the mesh code against the mesh-free steps. The first
+    step's generator metrics are equal bit for bit (an all-reduce of one
+    rank is a copy); every parameter within two of its Adam steps; 2/1/3/2
+    launches a step."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multimodal_segmentation_torch.parallel import make_mesh
+
+    conf = tiny_test_config()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method="tcp://localhost:%d" % port, world_size=1,
+                            rank=0)
+    try:
+        runs = []
+        for mesh in (None, make_mesh(1)):
+            model = build_model(conf, device="cuda")
+            with torch.no_grad():
+                model.fuser.locnet.Dense_1.weight.normal_(
+                    0.0, 1e-2, generator=torch.Generator("cuda").manual_seed(1))
+            ts = create_train_state(model, conf)
+            steps = DAFNetSteps(model, conf, mesh)
+            cuda_kernels.reset_launch_counts()
+            metrics = []
+            for seed in (1, 2):
+                ts, m = steps.step_supervised(ts, _expert_batch(conf, seed))
+                metrics.append({k: v.item() for k, v in m.items()})
+            runs.append((metrics, model.state_dict(), cuda_kernels.launch_counts()))
+    finally:
+        dist.destroy_process_group()
+    (m0, sd0, l0), (m1, sd1, l1) = runs
+    # the first step's forward is the mesh-free one bit for bit; the
+    # updates may differ as two mesh-free runs do (B2 adds with f32
+    # atomics), by Adam steps of at most ~lr at entries near 0
+    assert {k: v for k, v in m1[0].items() if not k.startswith("dis_")} == \
+        {k: v for k, v in m0[0].items() if not k.startswith("dis_")}
+    # at most 4 Adam steps a parameter in 2 steps (d_mask takes 2 a step),
+    # each under its lr, either way
+    lr = max(conf.lr, conf.d_mask_params.lr, conf.d_image_params.lr)
+    for k, _ in model.named_parameters():
+        assert (sd1[k] - sd0[k]).abs().max().item() <= 2.001 * 4 * lr, k
+    assert l0 == l1 == {"tps_warp_fwd": 4, "tps_warp_bwd": 2, "nearest_warp": 6, "round_ste": 4,
+                        "tps_flow_dbg": 0}

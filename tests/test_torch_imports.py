@@ -35,4 +35,10 @@ def test_every_port_module_imports_without_jax():
             "multimodal_segmentation_torch.tools.dress_rehearsal",
             "multimodal_segmentation_torch.data.cardiac",
             "multimodal_segmentation_torch.nn.unet3d",
-            "multimodal_segmentation_torch.models.volumetric"} <= set(res["modules"])
+            "multimodal_segmentation_torch.models.volumetric",
+            "multimodal_segmentation_torch.parallel.distributed",
+            "multimodal_segmentation_torch.parallel.mesh",
+            "multimodal_segmentation_torch.parallel.collectives",
+            "multimodal_segmentation_torch.parallel.halo",
+            "multimodal_segmentation_torch.tools.gloo_probe",
+            "multimodal_segmentation_torch.utils.nan_checks"} <= set(res["modules"])
