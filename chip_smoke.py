@@ -32,6 +32,11 @@ Phases, one JSON line each:
                 step's (32, 128, 128, 3) f32, volumes and masks, against
                 its plain gather and grid_sample nearest, the card's
                 rotation against the CPU's, and the step's two rotations)
+  warp-general  (in the kernels line) B1's general entry (inverse mapping,
+                orders 1-4, other control grids) at B = 12, 192x192, C = 8
+                against its plain version, 2e-4 f32 / 2e-2 bf16; the public
+                tps_warp forward and backward (B2) against the plain
+                route's autograd; timed against grid_sample
   debug-warp    the warp-bisect tool (multimodal_segmentation_torch.tools.
                 debug_warp_kernel) on the card: its five max differences
                 and the kernel launches of that run
@@ -80,6 +85,11 @@ Phases, one JSON line each:
   train-mmsdnet the same at full mmsdnet_chaos width: a batch is a
                 supervised generator step (with its Z-regressor update) and
                 a discriminator step, 3/1/3/6 launches a batch
+  train-mmsdnet-remat
+                full-width MMSDNet, f32 and bf16, remat_convs against without
+                (and a rerun without, the yardstick): the first batch's
+                metrics and state, the running statistics moved once, peak
+                memory and p50 ms of each
   experiment-paths
                 the CLI on dafnet_config_chaos --automatedpairing and on
                 mmsdnet_config_chaos, --l_mix 0.5, one epoch of PATHS_STEPS
@@ -122,6 +132,9 @@ Phases, one JSON line each:
                 2 steps: the first forward bit for bit, the rest held as
                 dp_check_against holds it; launches 2/1/3/2 a step, ms a
                 step of both
+  fused-adam    the full-width expert step with fused_adam against the
+                per-leaf Adam (train-dp-nccl1's mesh-free run and its rerun
+                as the yardstick): the first step compared, ms a step of each
   train-dp      two gloo ranks on the one card (torch.multiprocessing),
                 full-width expert step at batch 3 + 3 against the one
                 process on 6, same weights and noise (dp_check_against:
@@ -131,6 +144,13 @@ Phases, one JSON line each:
                 yardstick), launches 2/1/3/2 a step on each rank, p50 ms
                 over DP_TIMED steps after the compared ones (gloo through
                 the host: not a scaling figure)
+  train-tp      the same two ranks as a (1, 2) ('data', 'model') mesh: the
+                full-width expert step with 22 leaves sharded over 'model'
+                (min_features 256) against the mesh-free run: each rank
+                holds half of each; the first step's generator metrics bit
+                for bit, then dp_check_against; replicated leaves equal
+                across 'model'; launches 2/1/3/2; p50 ms, peak memory, the
+                bytes the weight gathers move a step
   train-3d-dp   the same two ranks: the full-width 3-D step on (1, 2) and
                 (2, 1) meshes against the unsharded step, loss within
                 2e-5, each gradient leaf within DP_3D_GRAD_REL (ReLU kinks
@@ -173,10 +193,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chip_smoke_out")
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
-# f32 FLOP/s outside the tensor cores
+# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
+# f32 and f64 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 
 # seeded weights that make inference exercise the warp: a sharper anatomy
 # head (at init every softmax channel is < 0.5 and the rounded anatomy is
@@ -221,6 +242,16 @@ BALANCER_STEPS = 20
 DP_COMPARED = 1
 DP_TIMED = 6
 DP_NCCL1_TIMED = 3
+# train-tp: timed steps after the compared one; the width from which a
+# leaf is sharded over 'model' (JAX's default), and the leaves that gives
+# at full dafnet_chaos width (22 of 226: 45,613,056 of 52,073,217
+# parameters)
+TP_TIMED = 2
+TP_MIN_FEATURES = 256
+TP_LEAVES = 22
+# train-mmsdnet-remat and fused-adam: timed batches after the compared one
+REMAT_TIMED = 2
+FUSED_TIMED = 2
 # train-3d-dp: each gradient leaf's largest difference over its largest
 # entry. ReLU kinks are aligned (step_grads_3d); max-pool near-ties and the
 # other order of the sums are not: on (2, 1) at full width the
@@ -230,8 +261,12 @@ DP_NCCL1_TIMED = 3
 DP_3D_GRAD_REL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line; `at_s`: seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields, "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond, msg):
@@ -335,19 +370,19 @@ def rotating(tensors_fn, nbytes, floor=160 * 2 ** 20):
     return [tensors_fn() for _ in range(max(2, -(-floor // nbytes)))]
 
 
-def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10):
+def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10, f64_flops=0):
     """Time kernel(buf), plain(buf) and library(buf), each call on the next
     of the rotating buffers `bufs`, and the bound of the work: the larger of
-    `moved` bytes over the HBM rate and `flops` over the f32 rate. Where no
-    PyTorch call computes the function, `library` is None and so are its
-    times."""
+    `moved` bytes over the HBM rate and the operations' time, `flops` over
+    the f32 rate plus `f64_flops` over the f64 rate. Where no PyTorch call
+    computes the function, `library` is None and so are its times."""
     def cycled(fn):
         it = itertools.cycle(bufs)
         return lambda: fn(next(it))
 
     ms, ms_spread = time_ms(cycled(kernel))
     plain_ms, plain_spread = time_ms(cycled(plain), iters=plain_iters)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS + f64_flops / F64_FLOPS
     out = {
         "ms": ms, "ms_spread": ms_spread,
         "device_ms": device_ms(cycled(kernel)),
@@ -357,7 +392,7 @@ def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10):
         "library_device_ms": None, "library_host_ms": None, "host_over_library_host": None,
         "bound_ms": 1e3 * max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": moved, "flops": flops,
+        "bytes": moved, "flops": flops, "f64_flops": f64_flops,
     }
     if library is not None:
         out["library_ms"], out["library_ms_spread"] = time_ms(cycled(library))
@@ -470,6 +505,125 @@ def warp_fwd_phase(torch, dev):
                   % (B, name, err, tol))
             res[prefix + name] = {"shape": [B, H, W, C], "max_abs_err": err, **timed(v, off)}
     return res
+
+
+# warp-general phase: the general entry's cases (name, inverse, order,
+# cp_dims, dtypes); B1's main path (forward, order 2, 25 shared points)
+# is warp_fwd_phase's
+GENERAL_CASES = (
+    ("inverse", True, 2, (5, 5), ("float32", "bfloat16")),
+    ("order1", False, 1, (5, 5), ("float32",)),
+    ("order3", False, 3, (5, 5), ("float32",)),
+    ("order4", False, 4, (5, 5), ("float32",)),
+    ("cp4x4", False, 2, (4, 4), ("float32",)),
+)
+
+
+def warp_general_phase(torch, dev):
+    """B1's general entry (csrc/tps_warp.cu, tps_warp_general_kernel) at
+    the main path's training shape, B = 12, 192x192, C = 8, offsets of
+    +-0.025: the inverse mapping in f32 and bf16, orders 1, 3 and 4 and
+    cp_dims (4, 4) forward in f32, against its plain version
+    (tps._tps_warp_general_plain: the same coefficients and centres, the
+    flow in float64) within 2e-4 in f32 and 2e-2 in bf16. Then each case
+    through the public tps_warp, forward and backward, with the counts set
+    to 0 just before (the path's launches: one B1 general and one B2 a
+    case): B2's grad_vol within 1e-5 of its largest entry of the plain
+    route's autograd on the card, and the offsets' gradient (autograd
+    through the solve) within 1e-3 of its largest entry (B2's location
+    gradient is held to 5e-5 + 1e-4 relative, warp_bwd_phase). Timed at
+    the inverse f32 case against grid_sample at the plain version's
+    locations."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch.ops import cuda_kernels, tps
+    from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_fwd
+
+    B, H, W, C = 12, 192, 192, 8
+    r = np.random.RandomState(12)
+    vol32 = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
+    w = torch.from_numpy(r.randn(B, H, W, C).astype(np.float32)).to(dev)
+    res, launches, timed = {}, None, None
+    cuda_kernels.reset_launch_counts()
+    for name, inverse, order, dims, dtypes in GENERAL_CASES:
+        n = dims[0] * dims[1]
+        off = torch.from_numpy(((r.rand(B, n, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
+        wv = tps.tps_coefficients(off, dims, inverse, order)
+        cp = tps.tps_centres(off, dims, inverse).contiguous()
+        row = {"inverse": inverse, "order": order, "cp_dims": list(dims),
+               "coef_absmax": wv.abs().max().item()}
+        for dtype in dtypes:
+            tol = 2e-4 if dtype == "float32" else 2e-2
+            vol = vol32.to(getattr(torch, dtype))
+            got = tps_warp_fwd(vol, wv, cp, order)
+            ref = tps._tps_warp_general_plain(vol, wv, cp, order)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()), "non-finite general warp (%s)" % name)
+            err = (got.float() - ref.float()).abs().max().item()
+            check(err <= tol, "tps_warp_fwd general %s %s error %.3g > %g"
+                  % (name, dtype, err, tol))
+            row[dtype] = {"max_abs_err": err,
+                          "outside_share": (ref == 0).all(-1).float().mean().item()}
+            if name == "inverse" and dtype == "float32":
+                timed = (vol, wv, cp, order)
+        res[name] = row
+    fwd_checks = cuda_kernels.general_launch_count()
+
+    # the public entry, forward and backward, against the plain route
+    cuda_kernels.reset_launch_counts()
+    for name, inverse, order, dims, _ in GENERAL_CASES:
+        n = dims[0] * dims[1]
+        off = torch.from_numpy(((r.rand(B, n, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
+        grads = []
+        for fn in (tps.tps_warp, tps._tps_warp_plain):
+            v = vol32.clone().requires_grad_(True)
+            o = off.clone().requires_grad_(True)
+            (fn(v, o, dims, inverse, order) * w).sum().backward()
+            grads.append((v.grad, o.grad))
+        (gv, go), (rv, ro) = grads
+        e_vol, e_off = (gv - rv).abs().max().item(), (go - ro).abs().max().item()
+        top_vol, top_off = rv.abs().max().item(), ro.abs().max().item()
+        check(e_vol <= 1e-5 * top_vol, "general warp %s grad_vol %.3g > 1e-5 x %.3g"
+              % (name, e_vol, top_vol))
+        check(e_off <= 1e-3 * top_off, "general warp %s offsets' gradient %.3g > 1e-3 x %.3g"
+              % (name, e_off, top_off))
+        res[name]["backward"] = {"grad_vol": e_vol, "grad_vol_max": top_vol,
+                                 "grad_offsets": e_off, "grad_offsets_max": top_off}
+    torch.cuda.synchronize()
+    launches = {**cuda_kernels.launch_counts(),
+                "tps_warp_fwd_general": cuda_kernels.general_launch_count()}
+    want = {k: len(GENERAL_CASES) if k in ("tps_warp_fwd", "tps_warp_fwd_general",
+                                           "tps_warp_bwd") else 0 for k in launches}
+    check(launches == want, "warp-general launches %s != %s" % (launches, want))
+
+    vol, wv, cp, order = timed
+    n = cp.shape[-2]
+    # grid_sample at the plain version's f32 locations (its flow in float64)
+    locs = tps._general_locations(wv, cp, (H, W), order)
+    grid = grid_of(torch, locs, H, W)
+
+    def library(v):
+        return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    # bound: vol read and out written once, wv and the centres read once;
+    # operations: per (point, image) the float64 flow (n_cp terms of ~30
+    # for a log or a pow, at the f64 rate), and in f32 ~20 for the corner
+    # weights and 8 per channel for the blend
+    nbytes = vol.numel() * vol.element_size()
+    m = measure(rotating(lambda: vol.clone(), nbytes),
+                lambda v: tps_warp_fwd(v, wv, cp, order),
+                lambda v: tps._tps_warp_general_plain(v, wv, cp, order), library,
+                2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
+                B * H * W * (20 + 8 * C), f64_flops=B * H * W * n * 30)
+    m["library_max_abs_diff"] = (library(vol).permute(0, 2, 3, 1)
+                                 - tps_warp_fwd(vol, wv, cp, order)).abs().max().item()
+    return {"shape": [B, H, W, C], "cases": res, "checked_launches": fwd_checks,
+            "launches": launches, "max_abs_err": max(
+                row[dt]["max_abs_err"] for row in res.values() for dt in ("float32", "bfloat16")
+                if dt in row),
+            "timed_case": "inverse float32", **m}
 
 
 def bwd_cases(torch, r, B, H, W, dev):
@@ -2269,19 +2423,24 @@ def dp_kernels_phase(torch, dev):
     return out
 
 
-def dp_train_steps(torch, conf, device, mesh, compared, timed):
+def dp_train_steps(torch, conf, device, mesh, compared, timed, min_features=None):
     """DAFNetSteps.step_supervised at `conf` from build_model's weights on
     the executor's batches (global arrays; under `mesh` this
     rank's rows, shard_batch), the noise drawn from the train state's
     generator at the global batch: the metrics of the first `compared`
     steps (on native convolutions), the generator's gradients of the first
     (as its Adam gets them) and the state after them (on the CPU), then
-    `timed` more steps: their ms, p50 and launches."""
+    `timed` more steps: their ms, p50, launches and peak memory. With
+    `min_features` the train state is sharded over the mesh's 'model' axis
+    (tp_shard_train_state); the gradients and the state are then gathered
+    whole (every rank takes part), and the bytes of the weights the
+    forward gathers a step are counted."""
     from multimodal_segmentation_torch.data import init_loader
     from multimodal_segmentation_torch.data.batches import TrainingData
     from multimodal_segmentation_torch.models import build_model
     from multimodal_segmentation_torch.ops import cuda_kernels
-    from multimodal_segmentation_torch.parallel import shard_batch
+    from multimodal_segmentation_torch.parallel import collectives, shard_batch
+    from multimodal_segmentation_torch.parallel import sharding
     from multimodal_segmentation_torch.train import create_train_state, make_steps
 
     on_card = torch.device(device).type == "cuda"
@@ -2306,28 +2465,55 @@ def dp_train_steps(torch, conf, device, mesh, compared, timed):
     hook = model.enc_anatomy.conv_anatomy.register_forward_hook(seen)
     steps = make_steps(model, conf, mesh)
     ts = create_train_state(model, conf)
+    sharded = {}
+    if min_features is not None:
+        sharding.tp_shard_train_state(mesh, ts, min_features)
+        sharded = {n: tuple(p.shape) for n, p in sharding.sharded_parameters(model).items()}
     batches = TrainingData(conf, loader).assembled_batches()
     metrics, times, state = [], [], None
     # the generator's gradients of the first step, as its Adam gets them
-    # (after the mesh's reduction)
+    # (after the mesh's reduction), each sharded leaf gathered whole
     names = {id(p): n for n, p in model.named_parameters()}
     grads1, opt_step = {}, ts.opt_gen.step
 
     def first_step(*a, **k):
         for p in ts.opt_gen.param_groups[0]["params"]:
-            grads1[names[id(p)]] = p.grad.detach().cpu().clone()
+            grads1[names[id(p)]] = sharding.whole_named(
+                model, {names[id(p)]: p.grad.detach()})[names[id(p)]].cpu().clone()
         ts.opt_gen.step = opt_step
         return opt_step(*a, **k)
     ts.opt_gen.step = first_step
+
+    def whole_state():
+        return {k: v.detach().cpu().clone()
+                for k, v in sharding.whole_named(model, model.state_dict()).items()}
+
+    def replicated_state():
+        # this rank's copy of every leaf that 'model' does not shard
+        if min_features is None:
+            return None
+        return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                if k not in sharded}
+    gathered = [0]
+    gather = collectives.gather
+
+    def counted_gather(x, dim, axis):
+        out = gather(x, dim, axis)
+        gathered[0] += out.numel() * out.element_size()
+        return out
+    collectives.gather = counted_gather
     cuda_kernels.reset_launch_counts()
     for i in range(compared + timed):
         batch = next(batches)["sup"]
         if mesh is not None:
             batch = shard_batch(mesh, batch, device)
         if i == compared:
-            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            state, replicated = whole_state(), replicated_state()
             budget = adam_budget(model, ts)
             cuda_kernels.reset_launch_counts()
+            gathered[0] = 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
         sync()
         t = time.perf_counter()
         with native_convolutions(torch) if i < compared else contextlib.nullcontext():
@@ -2341,18 +2527,25 @@ def dp_train_steps(torch, conf, device, mesh, compared, timed):
             metrics.append(m)
         if i == 0:
             hook.remove()
+    collectives.gather = gather
     launches = cuda_kernels.launch_counts()
     if state is None:
-        state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        state, replicated = whole_state(), replicated_state()
         budget = adam_budget(model, ts)
     ms = sorted(1e3 * t for t in times)
-    return {"metrics": metrics, "state": state, "budget": budget, "grads1": grads1,
-            "min_anatomy_distance_from_half_step1": min(near_half),
-            "anatomy_logits_step1": logits[0],
-            "launches": launches, "steps_counted": timed,
-            "ms_per_step": [1e3 * t for t in times],
-            "p50_ms_per_step": ms[len(ms) // 2] if ms else None,
-            "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
+    out = {"metrics": metrics, "state": state, "budget": budget, "grads1": grads1,
+           "min_anatomy_distance_from_half_step1": min(near_half),
+           "anatomy_logits_step1": logits[0],
+           "launches": launches, "steps_counted": timed,
+           "ms_per_step": [1e3 * t for t in times],
+           "p50_ms_per_step": ms[len(ms) // 2] if ms else None,
+           "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
+    if on_card and timed:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    if min_features is not None:
+        out.update(sharded_shapes=sharded, replicated_state=replicated,
+                   gathered_bytes_per_step=gathered[0] / max(timed, 1))
+    return out
 
 
 def adam_budget(model, ts):
@@ -2558,6 +2751,126 @@ def train_dp_nccl1_phase(torch, conf, device, compared, timed):
     return row, alone, again
 
 
+def remat_runs(torch, conf, device, timed):
+    """MMSDNet batches at `conf` from build_model's weights on the
+    executor's batches (a supervised generator step with its Z-regressor
+    update, then a discriminator step, the noise from the train state's
+    generator): the first on native convolutions (as the data-parallel
+    comparisons, native_convolutions), its metrics and the state after
+    it; then `timed` batches: ms, p50, launches, peak memory."""
+    from multimodal_segmentation_torch.data import init_loader
+    from multimodal_segmentation_torch.data.batches import TrainingData
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.train import create_train_state, make_steps
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    loader = init_loader("synthetic", hw=conf.input_hw)
+    loader.modalities = list(conf.modality)
+    model = build_model(conf, device=device)
+    steps = make_steps(model, conf)
+    ts = create_train_state(model, conf)
+    batches = TrainingData(conf, loader).assembled_batches()
+    times, first = [], None
+    for i in range(1 + timed):
+        batch = next(batches)
+        if i == 1:
+            state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+            budget = adam_budget(model, ts)
+            cuda_kernels.reset_launch_counts()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        with native_convolutions(torch) if i == 0 else contextlib.nullcontext():
+            ts, m = steps.step_supervised(ts, batch["sup"])
+            ts, d = steps.step_discriminator(ts, batch["disc"])
+        sync()
+        m = {k: float(v) for k, v in {**m, **d}.items()}
+        check(all(math.isfinite(v) for v in m.values()), "non-finite metric: %s" % m)
+        if i == 0:
+            first = m
+        else:
+            times.append(time.perf_counter() - t)
+    ms = sorted(1e3 * t for t in times)
+    return {"metrics": [first], "state": state, "budget": budget,
+            "launches": cuda_kernels.launch_counts(), "ms_per_step": [1e3 * t for t in times],
+            "p50_ms_per_step": ms[len(ms) // 2],
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if on_card else None,
+            "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
+
+
+def remat_phase(torch, device, presets, timed):
+    """MMSDNet with remat_convs (nn/blocks.py::remat) against without, at
+    each of `presets` ({name: conf}), f32 and bf16: one run with remat, one
+    without and a second one without (the card's own run-to-run gap, B2's
+    atomics), each a compared batch and `timed` timed ones. The first
+    batch's generator metrics (computed before any update) equal the run
+    without remat to 1e-6 relative; the Z-regressor's and the
+    discriminator's, which see the updated generator, within 1e-2 or 10
+    times the rerun's gap; the state after it as dp_check_against holds
+    it (parameters within twice their Adam budget; each buffer within 2e-3
+    of its leaf or 10 times the rerun's gap: a running statistic updated
+    twice would be off by ~1 % of its value). Launches exact (3/1/3/6 a
+    batch: remat recomputes no kernel of the port). Reports the peak
+    memory of each setting, the reason remat exists, and p50 ms."""
+    rows = {}
+    for name, conf in presets.items():
+        runs = {}
+        for key, remat in (("plain", False), ("rerun", False), ("remat", True)):
+            runs[key] = remat_runs(torch, dataclasses.replace(conf, remat_convs=remat),
+                                   device, timed)
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        plain, rerun, remat = runs["plain"], runs["rerun"], runs["remat"]
+        biases = set(plain["biases_ahead_of_batchnorm"])
+        spread = dp_state_gap(rerun["state"], plain["state"], biases, plain["budget"])
+        buffer_rel = max(2e-3, 10 * spread["max_rel_buffers"])
+        gap = dp_state_gap(remat["state"], plain["state"], biases, plain["budget"], buffer_rel)
+        for key in ("max_over_budget_biases_ahead_of_batchnorm", "max_over_budget_other"):
+            check(gap[key] <= 2.001, "remat %s: %s %.6g" % (name, key, gap[key]))
+        lim = max(5e-3, 3 * spread["share_past_1e-5_rel"])
+        check(gap["share_past_1e-5_rel"] <= lim, "remat %s: %.3g of the entries past 1e-5"
+              % (name, gap["share_past_1e-5_rel"]))
+        after_update = ("rec_Z", "dis_M")
+        m_gap, m_spread = {}, {}
+        for k, v in plain["metrics"][0].items():
+            m_gap[k] = abs(remat["metrics"][0][k] - v) / max(abs(v), 1e-30)
+            m_spread[k] = abs(rerun["metrics"][0][k] - v) / max(abs(v), 1e-30)
+            lim = max(1e-2, 10 * m_spread[k]) if k in after_update else 1e-6
+            check(m_gap[k] <= lim, "remat %s: first batch %s differs by %.3g (limit %.3g)"
+                  % (name, k, m_gap[k], lim))
+        if torch.device(device).type == "cuda":
+            want = {k: v * timed for k, v in launches_per_batch(conf).items()}
+            for key, run in runs.items():
+                check(run["launches"] == want, "remat %s %s launches %s" % (name, key,
+                                                                            run["launches"]))
+        rows[name] = {
+            "compute_dtype": conf.compute_dtype, "batch": conf.batch_size,
+            "first_batch_metric_rel_diff": m_gap, "rerun_metric_rel_diff": m_spread,
+            "state": gap, "rerun_state": spread,
+            "max_memory_allocated": {k: r["max_memory_allocated"] for k, r in runs.items()},
+            "memory_remat_over_plain": (remat["max_memory_allocated"] /
+                                        plain["max_memory_allocated"]
+                                        if plain["max_memory_allocated"] else None),
+            "p50_ms_per_step": {k: r["p50_ms_per_step"] for k, r in runs.items()},
+            "ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()},
+            "timed_steps": timed, "launches": remat["launches"],
+        }
+    return rows
+
+
+def mmsdnet_presets(config):
+    """{compute dtype: full-width mmsdnet_chaos on the synthetic data}."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        conf = config.mmsdnet_chaos()
+        conf.dataset_name, conf.compute_dtype = "synthetic", dtype
+        out[dtype] = conf
+    return out
+
+
 def dp_3d_reference(torch, conf, device):
     """The unsharded 3-D step of train-3d-dp: the first batch and angles,
     the loss, the gradients and the InstanceNorm3D outputs (step_grads_3d)."""
@@ -2677,6 +2990,87 @@ def dp_experiment(torch, conf, device, mesh):
             "biases_ahead_of_batchnorm": sorted(_biases_ahead_of_batchnorm(model))}
 
 
+def fused_adam_phase(torch, conf, device, alone, again):
+    """The full-width expert step with fused_adam (one fused Adam update
+    an optimizer, train/state.py::adam) against the per-leaf Adam
+    (`alone`, train-dp-nccl1's mesh-free run, with `again` its rerun as
+    the yardstick, dp_check_against): the first step compared, then
+    FUSED_TIMED timed; ms a step of each. Launches exact."""
+    fused = dp_train_steps(torch, dataclasses.replace(conf, fused_adam=True), device, None,
+                           DP_COMPARED, FUSED_TIMED)
+    gaps = dp_check_against("fused-adam", fused, alone, again)
+    if device == "cuda":
+        want = {k: v * FUSED_TIMED for k, v in launches_per_batch(conf).items()}
+        check(fused["launches"] == want, "fused-adam launches %s" % fused["launches"])
+    return {"batch": conf.batch_size, "compared_steps": DP_COMPARED, "timed_steps": FUSED_TIMED,
+            **gaps, "launches": fused["launches"],
+            "p50_ms_per_step_fused": fused["p50_ms_per_step"],
+            "ms_per_step_fused": fused["ms_per_step"],
+            "p50_ms_per_step_per_leaf": alone["p50_ms_per_step"],
+            "ms_per_step_per_leaf": alone["ms_per_step"]}
+
+
+def train_tp_rows(res, alone, again, conf, device, min_features, leaves):
+    """train-tp: each of the two gloo ranks of a (1, 2) mesh ran the
+    full-width expert step with the train state sharded at
+    `min_features` (dp_train_steps), each over the whole batch. Each
+    rank holds `leaves` sharded leaves, half of each; its first step's
+    generator metrics equal the mesh-free run's (`alone`) bit for bit
+    (both compute the unsharded forward on the same card, the weights
+    gathered exactly); the rest as dp_check_against holds it against the
+    mesh-free run's own rerun. The leaves that 'model' replicates are
+    equal on the two ranks (parameters bit for bit: their gradients are
+    averaged over 'model'; BatchNorm statistics, spectral u: their largest
+    difference reported, within 1e-6 of the leaf). Launches 2/1/3/2 a step
+    a rank. One card: a correctness phase, not a scaling figure."""
+    per_rank = []
+    want = {k: v * TP_TIMED for k, v in launches_per_batch(conf).items()}
+    first = {k: v for k, v in alone["metrics"][0].items() if not k.startswith("dis_")}
+    for rank, r in enumerate(res):
+        t = r["train-tp"]
+        check(len(t["sharded_shapes"]) == leaves, "train-tp rank %d holds %d sharded leaves"
+              % (rank, len(t["sharded_shapes"])))
+        for n, shape in t["sharded_shapes"].items():
+            whole = tuple(alone["state"][n].shape)
+            check(shape == (whole[0] // 2,) + whole[1:], "train-tp %s: %s of %s" % (n, shape,
+                                                                                   whole))
+        check(all(t["metrics"][0][k] == v for k, v in first.items()),
+              "train-tp rank %d: the first step's generator metrics differ: %s vs %s"
+              % (rank, t["metrics"][0], alone["metrics"][0]))
+        gaps = dp_check_against("train-tp rank %d" % rank, t, alone, again)
+        spread = gaps.pop("one_process_rerun")
+        if device == "cuda":
+            check(t["launches"] == want, "train-tp rank %d launches %s" % (rank, t["launches"]))
+        per_rank.append({"rank": rank, **gaps, "launches": t["launches"],
+                         "p50_ms_per_step": t["p50_ms_per_step"], "ms_per_step": t["ms_per_step"],
+                         "max_memory_allocated": t.get("max_memory_allocated"),
+                         "gathered_bytes_per_step": t["gathered_bytes_per_step"]})
+    a, b = (r["train-tp"]["replicated_state"] for r in res)
+    params = set(alone["budget"])
+    check(all(a[k].equal(b[k]) for k in a if k in params),
+          "train-tp: a replicated parameter differs between the model ranks")
+    buffers = {k: (a[k].float() - b[k].float()).abs().max().item() /
+               max(b[k].float().abs().max().item(), 1e-30)
+               for k in a if k not in params and a[k].is_floating_point()}
+    worst = max(buffers.values())
+    check(worst <= 1e-6, "train-tp: buffers differ between the model ranks by %.3g" % worst)
+    sharded = res[0]["train-tp"]["sharded_shapes"]
+    return {"backend": res[0]["backend"], "mesh": {"data": 1, "model": 2}, "ranks": 2,
+            "cards": 1, "batch": conf.batch_size, "min_features": min_features,
+            "sharded_leaves": len(sharded),
+            "sharded_parameters": 2 * sum(math.prod(s) for s in sharded.values()),
+            "parameters": sum(v.numel() for k, v in alone["state"].items() if k in params),
+            "compared_steps": DP_COMPARED, "timed_steps": TP_TIMED,
+            "first_step_generator_metrics_bit_equal": True,
+            "replicated_parameters_equal_across_model": True,
+            "buffers_max_rel_diff_across_model": worst,
+            "p50_ms_per_step_mesh_free": alone["p50_ms_per_step"],
+            "max_memory_allocated_mesh_free": alone.get("max_memory_allocated"),
+            "note": "two gloo ranks on one card: the weight gathers go through the host; "
+                    "a correctness phase, not a scaling figure",
+            "one_process_rerun": spread, "per_rank": per_rank}
+
+
 def dp_experiment_conf(folder):
     """The tiny config, 3 epochs of 2 steps, early stopping set to fire at
     epoch 1 (a loss must fall by 10 to count), on the synthetic data.
@@ -2693,10 +3087,10 @@ def dp_experiment_conf(folder):
                                es_patience=1, es_min_delta=10.0, folder=folder)
 
 
-def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d):
-    """One of the two gloo ranks of train-dp, train-3d-dp and experiment-dp
-    (started by dp_phases with torch.multiprocessing): joins the group,
-    runs the three phases' rank parts and saves its results to
+def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d, tp_min_features):
+    """One of the two gloo ranks of train-dp, train-tp, train-3d-dp and
+    experiment-dp (started by dp_phases with torch.multiprocessing): joins
+    the group, runs the four phases' rank parts and saves its results to
     work/rank<r>.pt. An exception ends the process with a non-zero code."""
     import datetime
 
@@ -2717,6 +3111,8 @@ def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d):
         out = {"backend": dist.get_backend()}
         out["train-dp"] = dp_train_steps(torch, conf2d, device, make_mesh(2), DP_COMPARED,
                                          DP_TIMED)
+        out["train-tp"] = dp_train_steps(torch, conf2d, device, make_mesh(1, 2), DP_COMPARED,
+                                         TP_TIMED, min_features=tp_min_features)
         ref3d = torch.load(os.path.join(work, "ref3d.pt"), weights_only=False)
         out["train-3d-dp"] = [dp_3d_rank(torch, conf3d, device, s, ref3d, DP_TIMED)
                               for s in shapes3d]
@@ -2728,7 +3124,7 @@ def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d):
     torch.save(out, os.path.join(work, "rank%d.pt" % rank))
 
 
-def dp_phases(torch, device, conf2d, conf3d, **fields):
+def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **fields):
     """train-dp-nccl1, then train-dp, train-3d-dp and experiment-dp: the
     references in this process, then two gloo ranks (one spawned process
     each, the kernels already built) for the three phases at once. Emits
@@ -2744,6 +3140,8 @@ def dp_phases(torch, device, conf2d, conf3d, **fields):
     rows["train-dp-nccl1"], alone, again = train_dp_nccl1_phase(
         torch, conf2d, device, DP_COMPARED, DP_NCCL1_TIMED)
     emit("train-dp-nccl1", **fields, **rows["train-dp-nccl1"])
+    rows["fused-adam"] = fused_adam_phase(torch, conf2d, device, alone, again)
+    emit("fused-adam", **fields, **rows["fused-adam"])
     ref3d = dp_3d_reference(torch, conf3d, device)
     torch.save({k: ref3d[k] for k in ("vb", "mb", "th", "norms")}, os.path.join(work, "ref3d.pt"))
     exp_alone = dp_experiment(torch, dp_experiment_conf(os.path.join(work, "experiment_alone")),
@@ -2755,7 +3153,8 @@ def dp_phases(torch, device, conf2d, conf3d, **fields):
         torch.cuda.empty_cache()
     shapes3d = [(1, 2), (2, 1)]
     t0 = time.perf_counter()
-    ctx = mp.start_processes(dp_rank, args=(_free_port(), work, device, conf2d, conf3d, shapes3d),
+    ctx = mp.start_processes(dp_rank, args=(_free_port(), work, device, conf2d, conf3d, shapes3d,
+                                            tp[0]),
                              nprocs=2, join=False, start_method="spawn")
     while not ctx.join(timeout=600):
         pass
@@ -2787,6 +3186,9 @@ def dp_phases(torch, device, conf2d, conf3d, **fields):
         "one_process_rerun": rows["train-dp-nccl1"]["one_process_rerun"],
         "per_rank": per_rank}
     emit("train-dp", **fields, **rows["train-dp"])
+
+    rows["train-tp"] = train_tp_rows(res, alone, again, conf2d, device, *tp)
+    emit("train-tp", **fields, **rows["train-tp"])
 
     # train-3d-dp: each mesh on each rank against the unsharded step
     exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c)
@@ -2982,6 +3384,11 @@ def main(argv=None):
         emit("experiment-paths", **experiment_paths_phase(
             torch, "cpu", (("tiny", "--automatedpairing"), ("tiny_mmsdnet",))))
         emit("balancer-order", **balancer_order_phase(torch, "cpu"))
+        tiny = {}
+        for dtype in ("float32", "bfloat16"):
+            tiny[dtype] = config.tiny_test_config("mmsdnet")
+            tiny[dtype].dataset_name, tiny[dtype].compute_dtype = "synthetic", dtype
+        emit("train-mmsdnet-remat", **remat_phase(torch, "cpu", tiny, 1))
         for dtype in ("float32", "bfloat16"):
             conf = tiny_3d()
             conf.compute_dtype = dtype
@@ -2991,7 +3398,7 @@ def main(argv=None):
         emit("experiment-3d", **experiment3d_phase(torch, "cpu", "cardiac_3d_config", **small))
         conf = config.tiny_test_config()
         conf.dataset_name = "synthetic"
-        dp_phases(torch, "cpu", conf, tiny_3d())
+        dp_phases(torch, "cpu", conf, tiny_3d(), tp=(16, 17))
         return 0
 
     if not torch.cuda.is_available():
@@ -3024,6 +3431,7 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     kern = {
         "tps_warp_fwd": warp_fwd_phase(torch, dev),
+        "warp_general": warp_general_phase(torch, dev),
         "tps_warp_bwd": warp_bwd_phase(torch, dev),
         "tps_warp_bwd_auto": warp_bwd_auto_phase(torch, dev),
         "rotation": rotation_phase(torch, dev),
@@ -3087,6 +3495,9 @@ def main(argv=None):
             new_train[key] = row
             emit(name, card=smi, **row)
             torch.cuda.empty_cache()
+    remat = remat_phase(torch, "cuda", mmsdnet_presets(config), REMAT_TIMED)
+    emit("train-mmsdnet-remat", card=smi, **remat)
+    torch.cuda.empty_cache()
     exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
     emit("experiment", card=smi, **exp)
     torch.cuda.empty_cache()
@@ -3132,6 +3543,10 @@ def main(argv=None):
              **{k: v["launches"] for k, v in train3d.items()},
              "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
                                for n in exp3d["launches"]},
+             "warp-general": kern["warp_general"]["launches"],
+             **{"train-mmsdnet-remat-" + k: v["launches"] for k, v in remat.items()},
+             "fused-adam": dp["fused-adam"]["launches"],
+             "train-tp": _summed(r["launches"] for r in dp["train-tp"]["per_rank"]),
              "train-dp-nccl1": dp["train-dp-nccl1"]["launches"],
              "train-dp": _summed(r["launches"] for r in dp["train-dp"]["per_rank"]),
              "train-3d-dp": _summed(m["launches"] for m in dp["train-3d-dp"]["meshes"]),
@@ -3189,6 +3604,23 @@ def main(argv=None):
                                                      "library_ms", "library_device_ms")}
                             for case, r in more_shapes[name].items()},
         })
+    g = kern["warp_general"]
+    summary.insert(1, {
+        "name": "tps_warp_fwd (general entry)",
+        "route": "cuda",
+        "source": src + "tps_warp.cu",
+        "replaces": pallas + "315",
+        "launches": sum(p.get("tps_warp_fwd_general", 0) for p in paths.values()),
+        "launches_by_path": {p: c["tps_warp_fwd_general"] for p, c in paths.items()
+                             if "tps_warp_fwd_general" in c},
+        **{f: g[f] for f in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "library_device_ms", "library_host_ms")},
+        "work": "B=12 192x192 C=8 float32, inverse mapping (per-image centres), order 2, "
+                "25 points; also orders 1, 3, 4 and a 4x4 grid, and bf16 (max_abs_err over "
+                "all): tps_warp's general entry, launched by the warp-general path",
+        "more_shapes": {},
+    })
+    emit("total", seconds=time.perf_counter() - _T0)
     print(smi)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -80,7 +80,10 @@ class ExperimentConfig:
     eval_warp: str = "bf16"
     # Inference activation dtype. Empty = same as compute_dtype.
     eval_dtype: str = ""
-    # Training-step options, read by the training slice.
+    # Training-step options. fused_adam: each optimizer updates all its
+    # parameters in one fused call (train/state.py::adam); remat_convs: the
+    # UNet blocks and the segmentor recompute their activations in the
+    # backward (nn/blocks.py::remat), lowering peak memory.
     fused_adam: bool = False
     remat_convs: bool = False
     steps_per_epoch: int = 0

@@ -25,6 +25,9 @@
 extern "C" {
 int tps_warp_fwd(const void* vol, const void* wv, const void* cp, void* out, int B,
                  int H, int W, int C, int n_cp, int is_bf16, void* stream);
+int tps_warp_fwd_general(const void* vol, const void* wv, const void* cp, void* out, int B,
+                         int H, int W, int C, int n_cp, int order, int cp_per_image,
+                         int is_bf16, void* stream);
 int tps_warp_bwd(const void* vol, const void* locs, const void* g, void* grad_vol,
                  void* grad_locs, int B, int H, int W, int C, int is_bf16,
                  long long gs_b, long long gs_h, long long gs_w, long long gs_c,
@@ -96,6 +99,36 @@ at::Tensor op_tps_warp_fwd(const at::Tensor& vol, const at::Tensor& wv,
   launched(tps_warp_fwd(vol.data_ptr(), wv.data_ptr(), cp.data_ptr(), out.data_ptr(),
                         i32(B), i32(vol.size(1)), i32(vol.size(2)), i32(vol.size(3)), 25,
                         is_bf16(vol), stream_of(stream)),
+           name);
+  return out;
+}
+
+// cp: (n_cp, 2) shared or (B, n_cp, 2) per image, 1 <= n_cp <= 32
+at::Tensor op_tps_warp_fwd_general(const at::Tensor& vol, const at::Tensor& wv,
+                                   const at::Tensor& cp, int64_t order, int64_t stream) {
+  const char* name = "tps_warp_fwd_general";
+  check_vol(vol, name, "vol");
+  TORCH_CHECK_VALUE(vol.size(1) >= 2 && vol.size(2) >= 2, name,
+                    ": unsupported vol shape ", vol.sizes());
+  const int64_t B = vol.size(0);
+  TORCH_CHECK_VALUE((cp.dim() == 2 || cp.dim() == 3) && cp.size(-1) == 2, name,
+                    ": cp must be (n_cp, 2) or (B, n_cp, 2), got ", cp.sizes());
+  const bool per_image = cp.dim() == 3;
+  const int64_t n_cp = cp.size(per_image ? 1 : 0);
+  TORCH_CHECK_VALUE(n_cp >= 1 && n_cp <= 32, name,
+                    ": the kernel takes 1 to 32 control points, got ", n_cp);
+  TORCH_CHECK_VALUE(order >= 1 && order <= 64, name, ": order must be in [1, 64], got ",
+                    order);
+  if (per_image)
+    check_f32(cp, name, "cp", {B, n_cp, 2}, vol);
+  else
+    check_f32(cp, name, "cp", {n_cp, 2}, vol);
+  check_f32(wv, name, "wv", {B, n_cp + 3, 2}, vol);
+  at::Tensor out = at::empty_like(vol);
+  launched(tps_warp_fwd_general(vol.data_ptr(), wv.data_ptr(), cp.data_ptr(), out.data_ptr(),
+                                i32(B), i32(vol.size(1)), i32(vol.size(2)), i32(vol.size(3)),
+                                i32(n_cp), i32(order), per_image, is_bf16(vol),
+                                stream_of(stream)),
            name);
   return out;
 }
@@ -218,6 +251,9 @@ at::Tensor op_tps_flow_dbg(const at::Tensor& wv, const at::Tensor& cp, int64_t H
 
 TORCH_LIBRARY(mmseg_cuda, m) {
   m.def("tps_warp_fwd(Tensor vol, Tensor wv, Tensor cp, int stream) -> Tensor");
+  m.def(
+      "tps_warp_fwd_general(Tensor vol, Tensor wv, Tensor cp, int order, int stream) -> "
+      "Tensor");
   m.def("tps_warp_bwd(Tensor vol, Tensor locs, Tensor g, int stream) -> (Tensor, Tensor)");
   m.def("nearest_warp(Tensor vol, Tensor locs, int stream) -> Tensor");
   m.def("rotate_group(Tensor[] arrays, Tensor cos_t, Tensor sin_t, int stream) -> Tensor[]");
@@ -227,6 +263,7 @@ TORCH_LIBRARY(mmseg_cuda, m) {
 
 TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
   m.impl("tps_warp_fwd", &op_tps_warp_fwd);
+  m.impl("tps_warp_fwd_general", &op_tps_warp_fwd_general);
   m.impl("tps_warp_bwd", &op_tps_warp_bwd);
   m.impl("nearest_warp", &op_nearest_warp);
   m.impl("rotate_group", &op_rotate_group);

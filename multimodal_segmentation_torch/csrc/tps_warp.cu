@@ -37,6 +37,26 @@
 // registers or in shared memory), this one was the fastest (PERF.md). The
 // TPU kernel's one-hot blend matmuls, channel-major
 // relayout, 32-row padding and 128-lane constraints are not carried over.
+//
+// The general entry. The same function for any spline of the JAX
+// signature (ops/tps.py::tps_sample_locations: cp_dims, inverse, order):
+// 1 to 32 control points (the TPU kernel pads to 32 too), the radial
+// basis of any polyharmonic order, and the centres either shared by the
+// batch (the control grid) or one set per image (the inverse mapping's
+// warped control points). Above, the 25-point order-2 shared-grid case
+// keeps its own specialisation, so the main path's code and output do not
+// move. Here a thread serves one (point, image) pair, with the image's
+// coefficients and centres staged in shared memory: with per-image
+// centres the basis cannot be shared across images. The flow is
+// evaluated in float64 from the f32 inputs (the kernel's own rounding
+// then stays far below 1e-4 px): orders 3 and 4 have coefficients up to
+// ~12 at offsets of +-0.025 (order 2: ~1) and their sums cancel more, so
+// an f32 evaluation is off by ~1e-3 px, and two f32 evaluations that sum
+// in another order differ by as much. The blend is B1's (Pixel below).
+// Bound: the operations. At B = 12, 192x192, C = 8 and 25 points the
+// float64 flow's ~3.3e8 operations (~30 a point and centre) take ~9.8 us
+// of the card's 34 TFLOP/s (non-tensor FP64), over the bytes' 8.5 us.
+// A simple kernel: it is not on a training path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -237,11 +257,73 @@ tps_warp_fwd_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
       [&](const Pixel<T, kWords>& px) { px.finish(C, W); });
 }
 
+// phi(r2) of the given polyharmonic order, as ops/tps.py::_phi, in float64
+__device__ __forceinline__ double phi_general(double r2, int order) {
+  const double r2c = fmax(r2, 1e-10);
+  if (order == 1) return sqrt(r2c);
+  if (order == 2) return 0.5 * r2 * log(r2c);
+  if (order == 4) return 0.5 * r2 * r2 * log(r2c);
+  if (order % 2 == 0) return 0.5 * pow(r2c, 0.5 * order) * log(r2c);
+  return pow(r2c, 0.5 * order);
+}
+
+constexpr int kMaxControlPoints = 32;
+
+// One (point, image) a thread: blockIdx.y is the image. cp: (n_cp, 2), or
+// (B, n_cp, 2) with per_image; wv: (B, n_cp + 3, 2).
+template <typename T, int kWords>
+__global__ void __launch_bounds__(kThreads)
+tps_warp_general_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
+                        const float* __restrict__ cp, T* __restrict__ out, int H, int W,
+                        int C, int n_cp, int order, int per_image) {
+  __shared__ float s_wv[(kMaxControlPoints + 3) * 2];
+  __shared__ float s_cp[kMaxControlPoints * 2];
+  const int b = blockIdx.y;
+  const float* wv_b = wv + (int64_t)b * (n_cp + 3) * 2;
+  const float* cp_b = per_image ? cp + (int64_t)b * n_cp * 2 : cp;
+  for (int i = threadIdx.x; i < (n_cp + 3) * 2; i += blockDim.x) s_wv[i] = wv_b[i];
+  for (int i = threadIdx.x; i < n_cp * 2; i += blockDim.x) s_cp[i] = cp_b[i];
+  __syncthreads();
+
+  const int q = blockIdx.x * kThreads + threadIdx.x;
+  if (q >= H * W) return;
+  const int qi = q / W;
+  const int qj = q - qi * W;
+  // control_grid((H, W)) in f32, as B1's basis computes it
+  const double qy = (double)((float)qi / (float)(H - 1));
+  const double qx = (double)((float)qj / (float)(W - 1));
+  double fy = 0.0;
+  double fx = 0.0;
+  for (int i = 0; i < n_cp; ++i) {
+    const double dy = qy - (double)s_cp[2 * i];
+    const double dx = qx - (double)s_cp[2 * i + 1];
+    const double phi = phi_general(dy * dy + dx * dx, order);
+    fy += phi * (double)s_wv[2 * i];
+    fx += phi * (double)s_wv[2 * i + 1];
+  }
+  const float* v = s_wv + 2 * n_cp;  // affine rows multiply qy, qx, 1
+  fy += qy * (double)v[0] + qx * (double)v[2] + (double)v[4];
+  fx += qy * (double)v[1] + qx * (double)v[3] + (double)v[5];
+  const Pixel<T, kWords> px = Pixel<T, kWords>::start(
+      vol, out, b, q, H, W, C, (float)(fy * (double)(H - 1)), (float)(fx * (double)(W - 1)));
+  px.finish(C, W);
+}
+
 template <typename T, int kWords>
 void launch(const void* vol, const void* wv, const void* cp, void* out, int B, int H, int W,
             int C, cudaStream_t s) {
   tps_warp_fwd_kernel<T, kWords><<<tps_grid(B, H, W), kThreads, 0, s>>>(
       (const T*)vol, (const float*)wv, (const float*)cp, (T*)out, B, H, W, C);
+}
+
+template <typename T, int kWords>
+void launch_general(const void* vol, const void* wv, const void* cp, void* out, int B, int H,
+                    int W, int C, int n_cp, int order, int per_image, cudaStream_t s) {
+  const int64_t n = (int64_t)H * W;
+  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)B);
+  tps_warp_general_kernel<T, kWords><<<grid, kThreads, 0, s>>>(
+      (const T*)vol, (const float*)wv, (const float*)cp, (T*)out, H, W, C, n_cp, order,
+      per_image);
 }
 
 template <typename T>
@@ -257,6 +339,22 @@ void launch_words(const void* vol, const void* wv, const void* cp, void* out, in
     launch<T, -1>(vol, wv, cp, out, B, H, W, C, s);
   else
     launch<T, 0>(vol, wv, cp, out, B, H, W, C, s);
+}
+
+template <typename T>
+void launch_general_words(const void* vol, const void* wv, const void* cp, void* out, int B,
+                          int H, int W, int C, int n_cp, int order, int per_image,
+                          cudaStream_t s) {
+  const int bytes = C * (int)sizeof(T);
+  const bool aligned = (uintptr_t)vol % 16 == 0 && (uintptr_t)out % 16 == 0 && bytes % 16 == 0;
+  if (aligned && bytes == 16)
+    launch_general<T, 1>(vol, wv, cp, out, B, H, W, C, n_cp, order, per_image, s);
+  else if (aligned && bytes == 32)
+    launch_general<T, 2>(vol, wv, cp, out, B, H, W, C, n_cp, order, per_image, s);
+  else if (aligned)
+    launch_general<T, -1>(vol, wv, cp, out, B, H, W, C, n_cp, order, per_image, s);
+  else
+    launch_general<T, 0>(vol, wv, cp, out, B, H, W, C, n_cp, order, per_image, s);
 }
 
 }  // namespace
@@ -275,5 +373,22 @@ extern "C" int tps_warp_fwd(const void* vol, const void* wv, const void* cp, voi
     launch_words<__nv_bfloat16>(vol, wv, cp, out, B, H, W, C, s);
   else
     launch_words<float>(vol, wv, cp, out, B, H, W, C, s);
+  return (int)cudaGetLastError();
+}
+
+// The general entry: vol, out and wv as tps_warp_fwd's; cp: (n_cp, 2) f32,
+// or with cp_per_image (B, n_cp, 2); 1 <= n_cp <= 32; order >= 1.
+extern "C" int tps_warp_fwd_general(const void* vol, const void* wv, const void* cp,
+                                    void* out, int B, int H, int W, int C, int n_cp,
+                                    int order, int cp_per_image, int is_bf16, void* stream) {
+  if (B < 1 || B > 65535 || H < 2 || W < 2 || C < 1 || n_cp < 1 ||
+      n_cp > kMaxControlPoints || order < 1 || (int64_t)H * W > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    launch_general_words<__nv_bfloat16>(vol, wv, cp, out, B, H, W, C, n_cp, order,
+                                        cp_per_image, s);
+  else
+    launch_general_words<float>(vol, wv, cp, out, B, H, W, C, n_cp, order, cp_per_image, s);
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,10 @@
 
 The port's copy of multimodal_segmentation_tpu/losses.py, formula for
 formula (reference costs.py): the numpy evaluation metrics (:50-83) and
-the on-device validation Dice (:33-47) and the training losses (:88-221).
+the on-device validation Dice (:33-47), the training losses (:88-221),
+and the functions no training path calls (similarity_weighted_dice :162,
+similarity_weighted_mae :184, mse :192, kl_from_stats :210 and the numpy
+distance_correlation :224).
 Mask and image tensors are NHWC with the channels last, as in the JAX
 package; losses accumulate in f32.
 
@@ -135,6 +138,18 @@ def combined_dice_bce_perbatch(y_true, y_pred, num_classes, eps=1e-12, group=Non
     return d + LAMBDA_BCE * _reference_weighted_bce_perbatch(y_true, y_pred, group=group)
 
 
+def similarity_weighted_dice(weights, y_true, y_pred, restrict_chn, eps=1e-5):
+    """Dice on the first `restrict_chn` channels, each sample's (1 - dice)
+    scaled by its similarity weight, averaged (costs.py:111-126).
+    weights: (B,)."""
+    t = y_true[..., :restrict_chn]
+    p = y_pred[..., :restrict_chn]
+    inter = torch.sum(t * p, dim=(1, 2, 3))
+    union = torch.sum(t, dim=(1, 2, 3)) + torch.sum(p, dim=(1, 2, 3))
+    d = (2.0 * inter + eps) / (union + eps)
+    return torch.mean(weights * (1.0 - d))
+
+
 # ---------------- reconstruction and GAN / VAE losses ----------------
 
 def mae(y_true, y_pred):
@@ -146,6 +161,18 @@ def mae_perbatch(y1, y2):
     """Per-sample, per-channel MAE over H and W, shape (B, C) (costs.py:
     24-27): a (B, 1) weight column multiplies it sample by sample."""
     return torch.mean(torch.abs(y1.float() - y2.float()), dim=(1, 2))
+
+
+def similarity_weighted_mae(weights, y_true, y_pred):
+    """MAE with each (sample, channel) scaled by its weight (costs.py:
+    14-21). weights: (B, C). In the inputs' dtype, as the JAX package's."""
+    w = weights[:, None, None, :]
+    return torch.mean(torch.abs(y_true - y_pred) * w)
+
+
+def mse(y_true, y_pred):
+    """Mean squared error (Keras 'mse'), in f32 as `mae`."""
+    return torch.mean(torch.square(y_true.float() - y_pred.float()))
 
 
 def lsgan_fool(d_out):
@@ -161,7 +188,34 @@ def lsgan_disc(d_real, d_fake):
     )
 
 
+def kl_from_stats(z_mean, z_log_var):
+    """KL(q(z|x) || N(0, I)) per sample, shape (B, 1) (costs.py:186-189)."""
+    kl = -0.5 * torch.sum(1.0 + z_log_var - torch.square(z_mean) - torch.exp(z_log_var), dim=-1)
+    return kl[:, None]
+
+
 def ypred_loss(y_pred):
     """The reference's pass-through loss for in-graph losses: Keras reduces
     the returned tensor with a mean (costs.py:194-195)."""
     return torch.mean(y_pred)
+
+
+def distance_correlation(a, b):
+    """Distance correlation between two sample matrices, in float64 numpy
+    (an analysis utility; costs.py:198-218 defines it and no training path
+    calls it)."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    n = a.shape[0]
+    if b.shape[0] != n:
+        raise ValueError("Number of samples must match")
+
+    def centred(x):
+        d = np.sqrt(np.maximum(np.sum((x[:, None, :] - x[None, :, :]) ** 2, axis=-1), 0.0))
+        return d - d.mean(axis=0)[None, :] - d.mean(axis=1)[:, None] + d.mean()
+
+    A, B = centred(a), centred(b)
+    dcov2_xy = (A * B).sum() / float(n * n)
+    dcov2_xx = (A * A).sum() / float(n * n)
+    dcov2_yy = (B * B).sum() / float(n * n)
+    return np.sqrt(dcov2_xy) / np.sqrt(np.sqrt(dcov2_xx) * np.sqrt(dcov2_yy))

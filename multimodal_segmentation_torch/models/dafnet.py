@@ -66,13 +66,14 @@ class DAFNet(MeshMember, MaskPredictor, nn.Module):
             out_channels=sc,
             rounding=ae.rounding,
             dtype=dtype,
+            remat=conf.remat_convs,
         )
         self.fuser = AnatomyFuser(
             sc, conf.input_hw, dtype=dtype,
             eval_blend_bf16=conf.eval_warp == "bf16",
         )
         self.enc_modality = ModalityEncoder(sc + in_ch, conf.input_hw, conf.num_z, dtype)
-        self.segmentor = Segmentor(sc, conf.num_masks, dtype=dtype)
+        self.segmentor = Segmentor(sc, conf.num_masks, dtype=dtype, remat=conf.remat_convs)
         self.decoder = Decoder(conf.decoder_type, sc, conf.num_z, dtype, conf.input_hw)
         self.balancer = Balancer(conf.n_pairs)
         dm, di = conf.d_mask_params, conf.d_image_params

@@ -71,13 +71,13 @@ class MMSDNet(MeshMember, MaskPredictor, nn.Module):
         for name in ("enc_anatomy1", "enc_anatomy2"):
             self.add_module(name, AnatomyEncoder(
                 in_ch=in_ch, filters=ae.filters, downsample=ae.downsample, norm=ae.normalise,
-                out_channels=sc, rounding=ae.rounding, dtype=dtype))
+                out_channels=sc, rounding=ae.rounding, dtype=dtype, remat=conf.remat_convs))
         self.fuser = AnatomyFuser(
             sc, conf.input_hw, dtype=dtype,
             eval_blend_bf16=conf.eval_warp == "bf16",
         )
         self.enc_modality = ModalityEncoder(sc + in_ch, conf.input_hw, conf.num_z, dtype)
-        self.segmentor = Segmentor(sc, conf.num_masks, dtype=dtype)
+        self.segmentor = Segmentor(sc, conf.num_masks, dtype=dtype, remat=conf.remat_convs)
         self.decoder = Decoder(conf.decoder_type, sc, conf.num_z, dtype, conf.input_hw)
         dm = conf.d_mask_params
         self.d_mask = Discriminator(conf.num_masks, conf.input_hw, dm.filters,

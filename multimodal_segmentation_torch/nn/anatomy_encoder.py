@@ -7,7 +7,8 @@ model_components/anatomy_encoder.py):
 * `DualAnatomyEncoder` (:56-133) = the DAFNet variant: each modality has a
   private down path; the bottleneck, the up path and the final 1x1 conv
   are shared.
-NCHW tensors; the softmax runs over the channel dim.
+NCHW tensors; the softmax runs over the channel dim. `remat` goes to every
+UNet block (nn/blocks.py::remat).
 """
 
 import torch
@@ -30,13 +31,13 @@ class AnatomyEncoder(nn.Module):
     """Single-modality anatomy encoder (anatomy_encoder.py:13-30)."""
 
     def __init__(self, in_ch=1, filters=64, downsample=4, norm="batch",
-                 out_channels=8, rounding=True, dtype=torch.float32):
+                 out_channels=8, rounding=True, dtype=torch.float32, remat=False):
         super().__init__()
         self.rounding = rounding
         self.dtype = dtype
-        self.UNetDown_0 = UNetDown(in_ch, filters, downsample, norm)
-        self.UNetBottleneck_0 = UNetBottleneck(filters, downsample, norm)
-        self.UNetUp_0 = UNetUp(filters, downsample, norm)
+        self.UNetDown_0 = UNetDown(in_ch, filters, downsample, norm, remat)
+        self.UNetBottleneck_0 = UNetBottleneck(filters, downsample, norm, remat)
+        self.UNetUp_0 = UNetUp(filters, downsample, norm, remat)
         self.conv_anatomy = Conv2d(filters, out_channels, 1)
 
     def forward(self, x):
@@ -50,14 +51,14 @@ class DualAnatomyEncoder(nn.Module):
     (anatomy_encoder.py:32-73)."""
 
     def __init__(self, in_ch=1, filters=64, downsample=4, norm="batch",
-                 out_channels=8, rounding=True, dtype=torch.float32):
+                 out_channels=8, rounding=True, dtype=torch.float32, remat=False):
         super().__init__()
         self.rounding = rounding
         self.dtype = dtype
-        self.down1 = UNetDown(in_ch, filters, downsample, norm)
-        self.down2 = UNetDown(in_ch, filters, downsample, norm)
-        self.shared_bottleneck = UNetBottleneck(filters, downsample, norm)
-        self.shared_up = UNetUp(filters, downsample, norm)
+        self.down1 = UNetDown(in_ch, filters, downsample, norm, remat)
+        self.down2 = UNetDown(in_ch, filters, downsample, norm, remat)
+        self.shared_bottleneck = UNetBottleneck(filters, downsample, norm, remat)
+        self.shared_up = UNetUp(filters, downsample, norm, remat)
         self.conv_anatomy = Conv2d(filters, out_channels, 1)
 
     def forward(self, x1, x2, pair_groups=1):

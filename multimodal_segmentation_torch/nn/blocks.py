@@ -13,8 +13,9 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from multimodal_segmentation_torch.parallel.collectives import mean_over
+from multimodal_segmentation_torch.parallel.collectives import mean_over, whole_weight
 
 # std of a unit normal truncated to [-2, 2]: Flax's variance_scaling
 # 'truncated_normal' divides by it
@@ -38,7 +39,9 @@ def _fan(init_kind, fan_in, fan_out):
 class Conv2d(nn.Conv2d):
     """Flax nn.Conv counterpart: 'SAME' (odd kernels, stride 1: symmetric
     pad k//2) or 'VALID' padding, he_normal, lecun_normal or glorot_normal
-    kernels, zero bias (or none, as use_bias=False)."""
+    kernels, zero bias (or none, as use_bias=False). Under tensor
+    parallelism the weight holds this rank's out channels and the forward
+    gathers the whole (parallel/collectives.py::whole_weight)."""
 
     def __init__(self, in_ch, out_ch, k, padding="SAME", init="lecun_normal", stride=1,
                  bias=True):
@@ -57,7 +60,7 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), bias,
+        return F.conv2d(x, whole_weight(self.weight).to(x.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
 
@@ -65,7 +68,8 @@ class Linear(nn.Linear):
     """Flax nn.Dense counterpart (lecun_normal, he_normal or zero kernel,
     zero bias). As nn.Dense(dtype=d), a Linear with `dtype` casts its
     input, weight and bias to d and computes in d; without one it computes
-    in the promoted type of its input and its f32 parameters, i.e. f32."""
+    in the promoted type of its input and its f32 parameters, i.e. f32.
+    Tensor parallelism as Conv2d's."""
 
     def __init__(self, in_features, out_features, init="lecun_normal", dtype=None):
         super().__init__(in_features, out_features)
@@ -74,7 +78,7 @@ class Linear(nn.Linear):
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), whole_weight(self.weight).to(dt), self.bias.to(dt))
 
     def flax_init_(self, generator):
         if self.init_kind == "zeros":
@@ -120,6 +124,14 @@ class BatchNorm(nn.Module):
     rows (shard_batch), so the mean of the ranks' moments is the global
     one, and over one rank it is the rank's own, bit for bit. Without a
     group nothing changes.
+
+    Rematerialisation (`remat`): inside a block that `remat` runs, the
+    forward is computed twice, once in the forward pass and once again in
+    the backward. The running statistics must move once, as Flax's
+    nn.remat updates batch_stats once: `remat` sets `deferred` to a list
+    for the first pass, into which the moments go instead, and applies
+    them after it; during the recomputation `deferred` is () and the
+    moments are dropped.
     """
 
     momentum = 0.99
@@ -128,6 +140,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.group = None
+        self.deferred = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -151,14 +164,41 @@ class BatchNorm(nn.Module):
             if self.group is not None:
                 mean, sq = mean_over(torch.stack([mean, sq]), self.group)
             var = torch.maximum(sq - mean.square(), torch.zeros((), device=x.device))
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean.mean(0))
-                self.running_var.mul_(m).add_((1 - m) * var.mean(0))
+            if self.deferred is None:
+                self.update_running(mean, var)
+            elif isinstance(self.deferred, list):
+                self.deferred.append((self, mean.detach(), var.detach()))
         shape = (1, groups, c, 1, 1)
         mul = torch.rsqrt(var.to(dt).view(shape) + self.eps) * self.weight.to(dt).view(1, 1, c, 1, 1)
         y = (xg - mean.to(dt).view(shape)) * mul + self.bias.to(dt).view(1, 1, c, 1, 1)
         return y.reshape(x.shape)
+
+    @torch.no_grad()
+    def update_running(self, mean, var):
+        """The EMA of the running statistics from a call's (G, C) moments."""
+        m = self.momentum
+        self.running_mean.mul_(m).add_((1 - m) * mean.mean(0))
+        self.running_var.mul_(m).add_((1 - m) * var.mean(0))
+
+
+def remat(module, body, *args):
+    """body(*args), the forward of `module`, rematerialised: under
+    torch.utils.checkpoint (non-reentrant), which saves only the inputs and
+    recomputes the body in the backward. Values and gradients are those of
+    body(*args); peak memory is lower. The running statistics of the
+    module's BatchNorms move once (BatchNorm.deferred)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    moments = []
+    for m in norms:
+        m.deferred = moments
+    try:
+        out = checkpoint(body, *args, use_reentrant=False)
+    finally:
+        for m in norms:
+            m.deferred = ()
+    for m, mean, var in moments:
+        m.update_running(mean, var)
+    return out
 
 
 class InstanceNorm(nn.Module):
@@ -215,18 +255,27 @@ def leaky_relu(x, alpha=0.3):
 
 
 class ConvBlock(nn.Module):
-    """[Conv3x3(he_normal) -> norm -> relu] x 2 (models/unet.py:94-101)."""
+    """[Conv3x3(he_normal) -> norm -> relu] x 2 (models/unet.py:94-101).
+    With `remat`, in train mode the block is rematerialised (`remat`):
+    its intermediates are recomputed in the backward (nn/blocks.py:
+    193-225 of the JAX package)."""
 
-    def __init__(self, in_ch, filters, norm="batch"):
+    def __init__(self, in_ch, filters, norm="batch", remat=False):
         super().__init__()
+        self.remat = remat
         self.Conv_0 = Conv2d(in_ch, filters, 3, init="he_normal")
         self.Norm_0 = _norm(norm, filters)
         self.Conv_1 = Conv2d(filters, filters, 3, init="he_normal")
         self.Norm_1 = _norm(norm, filters)
 
-    def forward(self, x, groups=1):
+    def _body(self, x, groups):
         x = F.relu(self.Norm_0(self.Conv_0(x), groups))
         return F.relu(self.Norm_1(self.Conv_1(x), groups))
+
+    def forward(self, x, groups=1):
+        if self.remat and self.training:
+            return remat(self, self._body, x, groups)
+        return self._body(x, groups)
 
 
 def upsample2x(x):
@@ -236,15 +285,22 @@ def upsample2x(x):
 
 class UpsampleBlock(nn.Module):
     """Upsample2x -> Conv3x3 -> norm (utils/model_utils.py:15-24) with the
-    'linear' activation, the only one its caller (UNetUp) uses."""
+    'linear' activation, the only one its caller (UNetUp) uses; `remat` as
+    ConvBlock's (nn/blocks.py:235-259 of the JAX package)."""
 
-    def __init__(self, in_ch, filters, norm="batch"):
+    def __init__(self, in_ch, filters, norm="batch", remat=False):
         super().__init__()
+        self.remat = remat
         self.Conv_0 = Conv2d(in_ch, filters, 3, init="he_normal")
         self.Norm_0 = _norm(norm, filters)
 
-    def forward(self, x, groups=1):
+    def _body(self, x, groups):
         return self.Norm_0(self.Conv_0(upsample2x(x)), groups)
+
+    def forward(self, x, groups=1):
+        if self.remat and self.training:
+            return remat(self, self._body, x, groups)
+        return self._body(x, groups)
 
 
 def max_pool2(x):

@@ -17,6 +17,7 @@ from torch import nn
 
 from multimodal_segmentation_torch.nn.blocks import Conv2d, Linear, leaky_relu
 from multimodal_segmentation_torch.ops.spectral import hwio_matrix, spectral_penalty
+from multimodal_segmentation_torch.parallel.collectives import whole_weight
 
 
 def _valid_hw(n, k, stride):
@@ -39,8 +40,10 @@ class SpectralConv(Conv2d):
 
     def penalty(self):
         """The penalty from the current kernel and `u`; the new
-        power-iteration vector replaces `u` (in place)."""
-        penalty, new_u = spectral_penalty(hwio_matrix(self.weight), self.u, self.alpha)
+        power-iteration vector replaces `u` (in place). Under tensor
+        parallelism the penalty reads the whole kernel."""
+        penalty, new_u = spectral_penalty(hwio_matrix(whole_weight(self.weight)), self.u,
+                                          self.alpha)
         self.u.copy_(new_u)
         return penalty
 

@@ -8,13 +8,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_segmentation_torch.nn.blocks import BatchNorm, Conv2d
+from multimodal_segmentation_torch.nn.blocks import BatchNorm, Conv2d, remat
 
 
 class Segmentor(nn.Module):
-    def __init__(self, in_ch=8, num_masks=4, dtype=torch.float32):
+    """With `remat`, in train mode the whole body is rematerialised
+    (nn/blocks.py::remat; nn/segmentor.py:17-26 of the JAX package)."""
+
+    def __init__(self, in_ch=8, num_masks=4, dtype=torch.float32, remat=False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.Conv_0 = Conv2d(in_ch, 64, 3, init="he_normal")
         self.BatchNorm_0 = BatchNorm(64)
         self.Conv_1 = Conv2d(64, 64, 3, init="he_normal")
@@ -24,6 +28,11 @@ class Segmentor(nn.Module):
     def forward(self, s, groups=1):
         """`groups`: in train mode the step segments several anatomy maps
         in one interleaved call, and BatchNorm keeps per-map statistics."""
+        if self.remat and self.training:
+            return remat(self, self._body, s, groups)
+        return self._body(s, groups)
+
+    def _body(self, s, groups):
         x = F.relu(self.BatchNorm_0(self.Conv_0(s.to(self.dtype)), groups))
         x = F.relu(self.BatchNorm_1(self.Conv_1(x), groups))
         # softmax in f32: mask probabilities feed Dice

@@ -61,13 +61,14 @@ def _nvcc():
 
 class Kernel:
     """One CUDA source and the operators that launch it; `launches`
-    counts the launches of all of them."""
+    counts the launches of all of them, `entry_launches` those of each."""
 
     def __init__(self, name, source, entries):
         self.name = name
         self.source = os.path.join(CSRC_DIR, source)
         self.entries = entries
         self.launches = 0
+        self.entry_launches = dict.fromkeys(entries, 0)
         self.fns = None          # {entry: torch.ops overload} once loaded
 
     def fn(self, entry=None):
@@ -79,7 +80,7 @@ class Kernel:
         return fns[entry or self.name]
 
 
-TPS_WARP_FWD = Kernel("tps_warp_fwd", "tps_warp.cu", ("tps_warp_fwd",))
+TPS_WARP_FWD = Kernel("tps_warp_fwd", "tps_warp.cu", ("tps_warp_fwd", "tps_warp_fwd_general"))
 TPS_WARP_BWD = Kernel("tps_warp_bwd", "tps_warp_bwd.cu", ("tps_warp_bwd",))
 NEAREST_WARP = Kernel("nearest_warp", "nearest_warp.cu", ("nearest_warp", "rotate_group"))
 ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
@@ -159,9 +160,17 @@ def launch_counts():
     return {k.name: k.launches for k in KERNELS}
 
 
+def general_launch_count():
+    """Launches of tps_warp_fwd's general entry (any spline but the
+    25-point order-2 one on the shared grid), also counted in its
+    `launches`."""
+    return TPS_WARP_FWD.entry_launches["tps_warp_fwd_general"]
+
+
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+        k.entry_launches = dict.fromkeys(k.entries, 0)
 
 
 def _launch(kernel, entry, t, *args, count=1):
@@ -176,6 +185,7 @@ def _launch(kernel, entry, t, *args, count=1):
         with torch.cuda.device(idx):
             out = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     kernel.launches += count
+    kernel.entry_launches[entry] += count
     return out
 
 
@@ -190,32 +200,43 @@ def _cuda(t, name, what):
         _fail(name, "%s must be a CUDA tensor, got %s" % (what, t.device))
 
 
-def tps_warp_fwd(vol, wv, cp):
+def tps_warp_fwd(vol, wv, cp, order=2):
     """Fused TPS flow + bilinear warp on the GPU (csrc/tps_warp.cu).
 
     Replaces multimodal_segmentation_tpu/ops/pallas_kernels.py::
-    tps_bilinear_warp_pallas. The spline basis phi_i of a point (25
-    accurate logf in f32) is evaluated once for a chunk of 8 images and
-    each image's flow is summed from it (csrc/tps_flow.cuh); a thread
-    issues an image's corner loads (channels-last, 16 bytes a load where
-    the rows allow), sums the next image's flow while they are in flight,
-    and blends in f32. Its bytes' bound is 8.5 us on an H100 at B=12 f32
-    and B=24 bf16 (vol read and out written once, 2 x 14.2 MB, 192x192,
-    C=8); it takes 1.7-2.9 times that, bound by the ~300 instructions
-    each (point, image) issues and its loads' latency, below
-    grid_sample's time at the main path's shapes (PERF.md).
+    tps_bilinear_warp_pallas. Two operators of one source:
+
+    * the 25-point order-2 spline on the shared control grid (every
+      training and serving path): the spline basis phi_i of a point (25
+      accurate logf in f32) is evaluated once for a chunk of 8 images and
+      each image's flow is summed from it (csrc/tps_flow.cuh); a thread
+      issues an image's corner loads (channels-last, 16 bytes a load
+      where the rows allow), sums the next image's flow while they are in
+      flight, and blends in f32. Its bytes' bound is 8.5 us on an H100 at
+      B=12 f32 and B=24 bf16 (vol read and out written once, 2 x 14.2 MB,
+      192x192, C=8); it takes 1.7-2.9 times that, bound by the ~300
+      instructions each (point, image) issues and its loads' latency,
+      below grid_sample's time at the main path's shapes (PERF.md);
+    * the general entry, any other (n_cp <= 32, order, centres shared or
+      per image): a thread a (point, image), the flow in float64 from the
+      f32 inputs, the same blend. Its plain version is
+      ops/tps.py::_tps_warp_general_plain.
 
     Args:
       vol: (B, H, W, C) contiguous CUDA tensor, float32 or bfloat16.
-      wv: (B, 28, 2) contiguous float32 spline coefficients [w; v]
+      wv: (B, n_cp + 3, 2) contiguous float32 spline coefficients [w; v]
         (ops/tps.py::tps_coefficients).
-      cp: (25, 2) contiguous float32 control points (control_grid((5, 5))).
+      cp: the centres, contiguous float32: (n_cp, 2) shared (the control
+        grid) or (B, n_cp, 2) per image (ops/tps.py::tps_centres).
+      order: the polyharmonic order of the basis (ops/tps.py::_phi).
 
     Returns:
       (B, H, W, C) warped images in vol's dtype.
     """
     _cuda(vol, "tps_warp_fwd", "vol")
-    return _launch(TPS_WARP_FWD, "tps_warp_fwd", vol, vol, wv, cp)
+    if cp.dim() == 2 and cp.shape[0] == 25 and order == 2:
+        return _launch(TPS_WARP_FWD, "tps_warp_fwd", vol, vol, wv, cp)
+    return _launch(TPS_WARP_FWD, "tps_warp_fwd_general", vol, vol, wv, cp, int(order))
 
 
 def tps_warp_bwd(vol, locs, g):

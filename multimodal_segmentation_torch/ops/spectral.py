@@ -10,7 +10,10 @@ layers/spectralnorm.py:199-246):
 The JAX kernel is HWIO, so x is (kh * kw * in, out) in that order, and
 the stored u (kh * kw * in, 1) follows it. A torch OIHW weight must be
 permuted to (kh, kw, in, out) before the reshape (`hwio_matrix`);
-otherwise sigma and the penalty differ from the JAX package's.
+otherwise sigma and the penalty differ from the JAX package's. Under
+tensor parallelism the caller passes the whole kernel
+(nn/discriminator.py gathers it over 'model'), so the penalty and `u`
+are the unsharded ones on every rank.
 """
 
 import torch

@@ -1,21 +1,30 @@
-"""Thin-plate-spline warping (the STN of the anatomy fuser), forward mapping.
+"""Thin-plate-spline warping (the STN of the anatomy fuser).
 
 Port of multimodal_segmentation_tpu/ops/tps.py (reference
-layers/stn_spline.py:38-67, layers/interpolate_spline.py:76-179):
+layers/stn_spline.py:38-67, layers/interpolate_spline.py:76-209):
 
   f(q) = sum_i w_i * phi(||q - c_i||^2) + [q, 1] @ v
-  phi(r2) = 0.5 * r2 * log(max(r2, eps))           (thin-plate, order 2)
+  phi(r2) = 0.5 * r2 * log(max(r2, eps))           (thin-plate, order 2;
+            other orders as `_phi`)
 
 with (w, v) from [[A, B], [B^T, 0]] [w; v] = [f; 0]. In the forward
-direction the centres are the regular control grid, so the system matrix
-is constant: its float64 inverse is computed once on the host and the
-per-sample solve becomes one small f32 matmul.
+direction (inverse=False, every caller's) the centres are the regular
+control grid, so the system matrix is constant: its float64 inverse is
+computed once on the host and the per-sample solve becomes one small f32
+matmul. The inverse mapping centres the spline at the warped control
+points instead, so each sample solves its own (n+3) x (n+3) system, in
+f32 with torch.linalg.solve, as the JAX package's jnp route does
+(solve_tps, _interpolate). The JAX package's Pallas route ignores
+`inverse` and `order` (it passes the regular grid as the centres and
+hard-codes the order-2 basis); the port follows the jnp route on every
+device.
 
 `tps_warp` dispatches by device. For a tensor on the GPU it is a
 torch.autograd.Function: the forward launches the fused CUDA kernel
-(ops/cuda_kernels.py::tps_warp_fwd), the backward the warp-backward
-kernel (tps_warp_bwd) and chains its location gradient to the offsets
-through autograd of `tps_sample_locations`, as the JAX package's
+(ops/cuda_kernels.py::tps_warp_fwd) with the coefficients and the
+centres, the backward the warp-backward kernel (tps_warp_bwd) and chains
+its location gradient to the offsets through autograd of
+`tps_sample_locations` (the solve included), as the JAX package's
 custom_vjp does (ops/tps.py:268-288). For a tensor on the CPU it is the
 plain version (`_tps_warp_plain`: sample locations + bilinear gather),
 differentiated by autograd. The flow stays f32 throughout;
@@ -37,17 +46,28 @@ from multimodal_segmentation_torch.ops.resample import bilinear_sample
 _EPSILON = 1e-10  # matches reference layers/interpolate_spline.py:27
 
 
-def _phi(r2):
-    """Thin-plate radial basis (order 2) on *squared* distances."""
-    return 0.5 * r2 * torch.log(torch.clamp(r2, min=_EPSILON))
+def _phi(r2, order=2):
+    """Polyharmonic radial basis on *squared* distances (JAX ops/tps.py:
+    32-47, reference layers/interpolate_spline.py:182-209)."""
+    if order == 1:
+        return torch.sqrt(torch.clamp(r2, min=_EPSILON))
+    if order == 2:
+        return 0.5 * r2 * torch.log(torch.clamp(r2, min=_EPSILON))
+    if order == 4:
+        return 0.5 * torch.square(r2) * torch.log(torch.clamp(r2, min=_EPSILON))
+    r2 = torch.clamp(r2, min=_EPSILON)
+    if order % 2 == 0:
+        return 0.5 * torch.pow(r2, 0.5 * order) * torch.log(r2)
+    return torch.pow(r2, 0.5 * order)
 
 
 def _sq_dist(x, y):
-    """Pairwise squared distances between rows of x (n,d) and y (m,d), in
-    the expanded form of the JAX package (ops/tps.py:50-54)."""
+    """Pairwise squared distances between rows of x (n,d) and y (m,d), or
+    (B, m, d) for one set of rows per sample, in the expanded form of the
+    JAX package (ops/tps.py:50-54)."""
     xn = torch.sum(x * x, dim=-1)[:, None]
-    yn = torch.sum(y * y, dim=-1)[None, :]
-    return xn - 2.0 * (x @ y.T) + yn
+    yn = torch.sum(y * y, dim=-1).unsqueeze(-2)
+    return xn - 2.0 * (x @ y.transpose(-1, -2)) + yn
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,20 +78,20 @@ def _control_grid_np(dims):
 
 
 @functools.lru_cache(maxsize=None)
-def _constant(make, key, device):
-    """make(key), a numpy array, as a tensor on `device`: copied there once
+def _constant(make, device, *key):
+    """make(*key), a numpy array, as a tensor on `device`: copied there once
     per device, so a training step sends no host tensor to the card. Made
     outside inference mode, since autograd may save it for backward. The
     tensor is shared by every caller: read only."""
     with torch.inference_mode(False):
-        return torch.from_numpy(make(key)).to(device)
+        return torch.from_numpy(make(*key)).to(device)
 
 
 def control_grid(dims, device="cpu"):
     """Normalised n-D grid of control/query points, row-major (y, x) order:
     dims=(5, 5) gives a (25, 2) f32 tensor with coordinates in [0, 1]
     (reference layers/stn_spline.py:70-91). Shared and read only."""
-    return _constant(_control_grid_np, tuple(dims), torch.device(device))
+    return _constant(_control_grid_np, torch.device(device), tuple(dims))
 
 
 def _pixel_scale_np(vol_shape):
@@ -80,7 +100,7 @@ def _pixel_scale_np(vol_shape):
 
 
 @functools.lru_cache(maxsize=None)
-def _const_tps_inverse(cp_dims):
+def _const_tps_inverse(cp_dims, order=2):
     """Float64 inverse of the constant forward TPS system matrix, cast to
     f32 (multimodal_segmentation_tpu/ops/tps.py:101-142)."""
     mesh = np.mgrid[tuple(slice(0, d) for d in cp_dims)]
@@ -92,53 +112,125 @@ def _const_tps_inverse(cp_dims):
         - 2.0 * grid @ grid.T
         + (grid**2).sum(-1)[None, :]
     )
-    a = 0.5 * sq * np.log(np.maximum(sq, _EPSILON))
+    a = _phi(torch.from_numpy(sq), order).numpy()
     b = np.concatenate([grid, np.ones((n, 1))], axis=1)
     lhs = np.block([[a, b], [b.T, np.zeros((d + 1, d + 1))]])
     return np.linalg.inv(lhs).astype(np.float32)
 
 
-def _forward_coefficients(cp_offsets, cp_dims):
+def _forward_coefficients(cp_offsets, cp_dims, order=2):
     """Batched [w; v] coefficients (B, n+d+1, d) for the mapping from the
     control grid to the offset grid, via the constant inverse."""
     device = cp_offsets.device
     warped = control_grid(cp_dims, device)[None] + cp_offsets   # (B, n, d)
     B, n, d = warped.shape
     rhs = torch.cat([warped, warped.new_zeros((B, d + 1, d))], dim=1)
-    inv = _constant(_const_tps_inverse, tuple(cp_dims), device)
+    inv = _constant(_const_tps_inverse, device, tuple(cp_dims), order)
     return torch.matmul(inv, rhs).contiguous()
 
 
-def tps_coefficients(cp_offsets, cp_dims=(5, 5)):
+def _inverse_coefficients(cp_offsets, cp_dims, order=2):
+    """Batched [w; v] (B, n+d+1, d) of the inverse mapping: the spline
+    centred at each sample's warped control points that maps them back to
+    the control grid, one f32 solve a sample (JAX ops/tps.py:70-100,
+    solve_tps, vmapped in tps_coefficients :218-231)."""
+    cp = control_grid(cp_dims, cp_offsets.device).to(cp_offsets.dtype)
+    centres = cp[None] + cp_offsets                               # (B, n, d)
+    B, n, d = centres.shape
+    a = _phi(_sq_dist_batched(centres), order)                    # (B, n, n)
+    b = torch.cat([centres, torch.ones_like(centres[..., :1])], dim=-1)   # (B, n, d+1)
+    lhs = torch.cat([torch.cat([a, b], dim=-1),
+                     torch.cat([b.transpose(1, 2), a.new_zeros((B, d + 1, d + 1))], dim=-1)],
+                    dim=1)
+    rhs = torch.cat([cp, cp.new_zeros((d + 1, d))], dim=0).expand(B, -1, -1)
+    return torch.linalg.solve(lhs, rhs).contiguous()
+
+
+def _sq_dist_batched(x):
+    """_sq_dist of each sample's rows with themselves: (B, n, d) ->
+    (B, n, n). The cross term is summed from rounded products, as the sums
+    of squares are, so the diagonal is exactly 0: a matmul that fuses
+    multiply and add leaves ~1e-8 there, which order 1's sqrt turns into
+    ~2e-3 px of the inverse mapping."""
+    xn = torch.sum(x * x, dim=-1)
+    cross = torch.sum(x[:, :, None, :] * x[:, None, :, :], dim=-1)
+    return xn[:, :, None] - 2.0 * cross + xn[:, None, :]
+
+
+def tps_centres(cp_offsets, cp_dims=(5, 5), inverse=False):
+    """The spline's centres: the control grid (n_cp, 2), shared by the
+    batch, or with `inverse` each sample's warped control points
+    (B, n_cp, 2)."""
+    cp = control_grid(cp_dims, cp_offsets.device)
+    return cp[None] + cp_offsets if inverse else cp
+
+
+def tps_coefficients(cp_offsets, cp_dims=(5, 5), inverse=False, order=2):
     """Stacked coefficients (B, n_cp + 3, 2) = [w; v] for the flow."""
-    return _forward_coefficients(cp_offsets, tuple(cp_dims))
+    if inverse:
+        return _inverse_coefficients(cp_offsets, tuple(cp_dims), order)
+    return _forward_coefficients(cp_offsets, tuple(cp_dims), order)
 
 
-def tps_sample_locations(cp_offsets, vol_shape, cp_dims=(5, 5)):
+def tps_sample_locations(cp_offsets, vol_shape, cp_dims=(5, 5), inverse=False, order=2):
     """Dense per-pixel sample locations for a batch of control-point offsets.
 
     Args:
       cp_offsets: (B, n_cp, 2) f32 offsets of the control points, in
         normalised [0, 1] grid coordinates, (y, x) order.
       vol_shape: (H, W) of the image being warped.
+      cp_dims: the control grid, n_cp = cp_dims[0] * cp_dims[1].
+      inverse: fit the inverse mapping (centres at the warped points).
+      order: the polyharmonic order of the radial basis (`_phi`).
 
     Returns:
       (B, H*W, 2) f32 pixel-space sample locations in (y, x) order.
     """
     device = cp_offsets.device
-    cp_grid = control_grid(cp_dims, device)
-    q_grid = control_grid(vol_shape, device)
-    wv = _forward_coefficients(cp_offsets, tuple(cp_dims))
-    phi_q = _phi(_sq_dist(q_grid, cp_grid))                       # (m, n)
-    basis = torch.cat([phi_q, q_grid, torch.ones_like(q_grid[:, :1])], dim=1)
+    q_grid = control_grid(vol_shape, device).to(cp_offsets.dtype)
+    wv = tps_coefficients(cp_offsets, cp_dims, inverse, order)
+    centres = tps_centres(cp_offsets, cp_dims, inverse)
+    phi_q = _phi(_sq_dist(q_grid, centres), order)                # (m, n) or (B, m, n)
+    if inverse:
+        q_pad = torch.cat([q_grid, torch.ones_like(q_grid[:, :1])], dim=1)
+        basis = torch.cat([phi_q, q_pad.expand(phi_q.shape[0], -1, -1)], dim=2)
+    else:
+        basis = torch.cat([phi_q, q_grid, torch.ones_like(q_grid[:, :1])], dim=1)
     locs = torch.matmul(basis, wv)                                # (B, m, 2)
-    return locs * _constant(_pixel_scale_np, tuple(vol_shape), device)
+    return locs * _constant(_pixel_scale_np, device, tuple(vol_shape))
 
 
-def _tps_warp_plain(vol, cp_offsets, cp_dims=(5, 5)):
+def _tps_warp_plain(vol, cp_offsets, cp_dims=(5, 5), inverse=False, order=2):
     """Plain PyTorch version of the warp: sample locations + bilinear gather."""
     B, H, W, C = vol.shape
-    locs = tps_sample_locations(cp_offsets, (H, W), cp_dims)
+    locs = tps_sample_locations(cp_offsets, (H, W), cp_dims, inverse, order)
+    return bilinear_sample(vol, locs).reshape(B, H, W, C).to(vol.dtype)
+
+
+def _general_locations(wv, centres, vol_shape, order=2):
+    """The sample locations (B, H*W, 2) of the warp kernel's general entry:
+    from f32 coefficients (B, n_cp + 3, 2) and centres ((n_cp, 2) or
+    (B, n_cp, 2)), the flow with direct differences q - c_i in float64, as
+    the kernel evaluates it, rounded to f32 pixel locations."""
+    H, W = vol_shape
+    B, n = wv.shape[0], wv.shape[1] - 3
+    q = control_grid((H, W), wv.device).double()                        # (m, 2)
+    c = centres.double()
+    c = c.expand(B, -1, -1) if c.dim() == 2 else c
+    d = q[None, :, None, :] - c[:, None, :, :]                          # (B, m, n, 2)
+    phi = _phi(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1], order)    # (B, m, n)
+    w = wv.double()
+    flow = phi @ w[:, :n] + q @ w[:, n:n + 2] + w[:, n + 2:n + 3]        # (B, m, 2)
+    scale = torch.tensor([H - 1.0, W - 1.0], dtype=torch.float64, device=wv.device)
+    return (flow * scale).float()
+
+
+def _tps_warp_general_plain(vol, wv, centres, order=2):
+    """Plain PyTorch version of the warp kernel's general entry
+    (cuda_kernels.tps_warp_fwd for anything but the 25-point order-2 shared
+    grid): the f32 bilinear blend at _general_locations."""
+    B, H, W, C = vol.shape
+    locs = _general_locations(wv, centres, (H, W), order)
     return bilinear_sample(vol, locs).reshape(B, H, W, C).to(vol.dtype)
 
 
@@ -159,14 +251,15 @@ def _tps_warp_bwd_plain(vol, locs, g):
 class _TPSWarpCUDA(torch.autograd.Function):
     """tps_warp on the GPU: kernel forward, kernel backward for the
     gather, autograd for the small chain from the locations to the
-    control-point offsets (28x28 solve, flow matmul)."""
+    control-point offsets (the (n+3)-square solve, the flow matmul)."""
 
     @staticmethod
-    def forward(ctx, vol, cp_offsets, cp_dims):
-        ctx.cp_dims = cp_dims
+    def forward(ctx, vol, cp_offsets, cp_dims, inverse, order):
+        ctx.args = (cp_dims, inverse, order)
         ctx.save_for_backward(vol, cp_offsets)
-        wv = tps_coefficients(cp_offsets, cp_dims)
-        return tps_warp_fwd(vol, wv, control_grid(cp_dims, vol.device))
+        wv = tps_coefficients(cp_offsets, cp_dims, inverse, order)
+        centres = tps_centres(cp_offsets, cp_dims, inverse).contiguous()
+        return tps_warp_fwd(vol, wv, centres, order)
 
     @staticmethod
     def backward(ctx, g):
@@ -174,22 +267,25 @@ class _TPSWarpCUDA(torch.autograd.Function):
         B, H, W, C = vol.shape
         with torch.enable_grad():
             off = cp_offsets.detach().requires_grad_(True)
-            locs = tps_sample_locations(off, (H, W), ctx.cp_dims)
+            locs = tps_sample_locations(off, (H, W), *ctx.args)
         # g arrives through the fuser's permute, channels-first: the kernel
         # reads it through its strides, with no contiguous copy
         grad_vol, grad_locs = tps_warp_bwd(vol, locs.detach(), g)
         grad_off = None
         if ctx.needs_input_grad[1]:
             (grad_off,) = torch.autograd.grad(locs, off, grad_locs)
-        return (grad_vol if ctx.needs_input_grad[0] else None), grad_off, None
+        return (grad_vol if ctx.needs_input_grad[0] else None), grad_off, None, None, None
 
 
-def tps_warp(vol, cp_offsets, cp_dims=(5, 5)):
+def tps_warp(vol, cp_offsets, cp_dims=(5, 5), inverse=False, order=2):
     """Warp a batch of images with a thin-plate-spline deformation.
 
     Args:
       vol: (B, H, W, C) images, f32 or bf16.
       cp_offsets: (B, n_cp, 2) f32 control-point offsets (normalised, (y, x)).
+      cp_dims: the control grid; on the GPU n_cp = cp_dims[0] * cp_dims[1]
+        is at most 32 (the kernel's limit; the JAX kernel's too).
+      inverse, order: as tps_sample_locations.
 
     Returns:
       (B, H, W, C) warped images in vol's dtype (zeros where sampling falls
@@ -197,10 +293,14 @@ def tps_warp(vol, cp_offsets, cp_dims=(5, 5)):
       the backward kernel; on the CPU it runs the plain version.
     """
     if vol.device.type == "cuda":
-        return _TPSWarpCUDA.apply(vol, cp_offsets, tuple(cp_dims))
+        if cp_offsets.shape[1] > 32:
+            raise ValueError("tps_warp on the GPU takes at most 32 control points (the "
+                             "kernel's limit, as the JAX package's), got %d"
+                             % cp_offsets.shape[1])
+        return _TPSWarpCUDA.apply(vol, cp_offsets, tuple(cp_dims), bool(inverse), int(order))
     if vol.device.type != "cpu":
         raise ValueError("tps_warp runs on 'cuda' or 'cpu', got %s" % vol.device)
-    return _tps_warp_plain(vol, cp_offsets, cp_dims)
+    return _tps_warp_plain(vol, cp_offsets, cp_dims, inverse, order)
 
 
 def _tps_flow_stage_plain(wv, cp, vol_shape):

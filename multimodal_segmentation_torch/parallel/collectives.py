@@ -1,6 +1,8 @@
-"""Collectives for data parallelism: a differentiable all-reduce, the
-flat in-place reduction of gradients and metrics, the exchange of the
-edge slabs of a sharded axis and the gather of a sharded axis.
+"""Collectives for data and tensor parallelism: a differentiable
+all-reduce, the flat in-place reduction of gradients and metrics, the
+exchange of the edge slabs of a sharded axis, the gather of a sharded
+axis, and the differentiable gather of a weight sharded over 'model'
+(`whole_weight`).
 
 No JAX file matches this one: under GSPMD the partitioner inserts these
 reductions. `group` is a process group (an Axis's), a tuple of them (a
@@ -187,3 +189,32 @@ def gather(x, dim, axis):
     buf.narrow(dim, axis.index * k, k).copy_(x)
     dist.all_reduce(buf, group=axis.group)
     return buf
+
+
+class _AllGather(torch.autograd.Function):
+    """The whole of a tensor split over mesh `axis` along `dim`, on every
+    rank of the axis (`gather`). Every rank of the axis computes the same
+    function of the whole tensor, so the gradient of the whole is the same
+    on each: the backward takes this rank's part of it, with no
+    communication."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.index, ctx.k = dim, axis.index, x.shape[dim]
+        return gather(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.k, ctx.k).contiguous(), None, None
+
+
+def whole_weight(p):
+    """The whole weight of parameter `p`, differentiable: `p` itself, or,
+    where tensor parallelism holds this rank's slice of its out-channel
+    dim (p.model_axis, set by parallel/sharding.py::tp_shard_train_state),
+    the slices of every rank of 'model' gathered (a zero-padded
+    all-reduce: exact on gloo and NCCL)."""
+    axis = getattr(p, "model_axis", None)
+    if axis is None:
+        return p
+    return _AllGather.apply(p, 0, axis)

@@ -9,8 +9,9 @@ process group: the ranks that share every other coordinate.
 
 `batch_sharding` and `replicated` are NamedShardings with no torch
 meaning and are not ported: a tensor here lives on one rank, and the
-layout is what `shard_batch` slices. The 'model' axis keeps size 1:
-tensor parallelism is not ported.
+layout is what `shard_batch` slices. The batch is split over 'data' and
+replicated over 'model', whose ranks hold slices of the wide parameters
+(parallel/sharding.py).
 """
 
 import dataclasses
@@ -81,12 +82,14 @@ class Mesh:
 
 def make_mesh(n_data=None, n_model=1):
     """A ('data', 'model') mesh over the ranks of the default process
-    group (one rank without torch.distributed); n_data defaults to all of
-    them. Only n_model = 1: tensor parallelism is not ported."""
-    if n_model != 1:
-        raise NotImplementedError("'model' sharding (tensor parallelism) is not ported")
+    group (one rank without torch.distributed); n_data defaults to the
+    ranks over n_model. Rank r sits at (r // n_model, r % n_model)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
-    return Mesh(("data", "model"), (world if n_data is None else n_data, n_model))
+    if n_data is None:
+        if world % n_model:
+            raise ValueError("%d ranks do not split over a 'model' axis of %d" % (world, n_model))
+        n_data = world // n_model
+    return Mesh(("data", "model"), (n_data, n_model))
 
 
 def _local_slice(mesh, a, spec):

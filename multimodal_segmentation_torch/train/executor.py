@@ -26,6 +26,14 @@ the same everywhere. Rank 0 alone writes the files (training.csv,
 test_error.txt, checkpoints, the component export, images, the test's
 results); the others wait for it at a barrier. A resume reads the same
 checkpoint on every rank.
+
+Tensor parallelism: on a mesh with 'model' > 1 the executor shards the
+train state's wide parameters (parallel/sharding.py::tp_shard_train_state,
+at sharding.MIN_FEATURES) when it creates it, after any component weights load
+and before any checkpoint restores. Every rank then gathers the sharded
+leaves for a checkpoint or the export, and makes the model whole
+(sharding.unsharded) for the work rank 0 does alone (images, the test);
+rank 0 writes one-process files.
 """
 
 import contextlib
@@ -44,7 +52,13 @@ from multimodal_segmentation_torch.data.prefetch import prefetch_to_device
 from multimodal_segmentation_torch.eval.tester import ModelTester
 from multimodal_segmentation_torch.models import full_f32_matmuls
 from multimodal_segmentation_torch.models.base import resolve_device
+from multimodal_segmentation_torch.parallel import sharding
 from multimodal_segmentation_torch.parallel.distributed import barrier, is_writer
+from multimodal_segmentation_torch.parallel.sharding import (
+    tp_shard_train_state,
+    unsharded,
+    whole_named,
+)
 from multimodal_segmentation_torch.train.early_stopping import EarlyStopping
 from multimodal_segmentation_torch.train.state import create_train_state, swa_copy
 from multimodal_segmentation_torch.train.steps import make_steps
@@ -62,13 +76,15 @@ class Executor:
       conf: the ExperimentConfig; conf.folder receives every artifact.
       model: the model, its weights already on `device`.
       device: where training runs; 'cuda' raises without a card.
-      mesh: a ('data', 'model') mesh for data parallelism, or None.
+      mesh: a ('data', 'model') mesh for data and tensor parallelism, or
+        None.
     """
 
     def __init__(self, conf, model, device="cuda", mesh=None):
         self.conf = conf
         self.model = model
         self.mesh = mesh
+        self.tp = mesh is not None and mesh.shape.get("model", 1) > 1
         self.writes = is_writer(mesh)
         self.device = resolve_device(device)
         w_dev = next(model.parameters()).device
@@ -106,18 +122,44 @@ class Executor:
         """A fresh train state, or the latest checkpoint's; without a
         checkpoint, any <folder>/models/*.npz component weights seed both
         the live parameters and the SWA average (executor.py:203-228).
+        Under tensor parallelism the state is sharded in between.
         Returns (ts, the first epoch to run)."""
         ts = create_train_state(self.model, self.conf)
         start_epoch = 0
         latest = self.ckpt.latest_epoch()
+        if latest is None and self.ckpt.load_component_weights(
+                os.path.join(self.conf.folder, "models"), self.model):
+            ts.swa = swa_copy(self.model)
+        if self.tp:
+            tp_shard_train_state(self.mesh, ts, sharding.MIN_FEATURES)
         if latest is not None:
             log.info("Resuming from checkpoint at epoch %d", latest)
             self.ckpt.restore(latest, ts)
             start_epoch = latest + 1
-        elif self.ckpt.load_component_weights(os.path.join(self.conf.folder, "models"),
-                                              self.model):
-            ts.swa = swa_copy(self.model)
         return ts, start_epoch
+
+    @contextlib.contextmanager
+    def _writer_block(self, ts):
+        """A block of work that the writer does alone on the eval weights
+        of `ts`; yields whether this rank does it. Under tensor parallelism
+        every rank enters (making the model whole is a collective)."""
+        if not self.tp:
+            if not self.writes:
+                yield False
+                return
+            with self.eval_weights(ts):
+                yield True
+            return
+        with self.eval_weights(ts), unsharded(self.model):
+            yield self.writes
+
+    def _save(self, epoch, ts, seconds):
+        """The checkpoint of `epoch`: gathered on every rank, written by
+        the writer."""
+        with self._timed(seconds, "checkpoint"):
+            state = self.ckpt.state_of(ts)
+            if self.writes:
+                self.ckpt.save(epoch, ts, state)
 
     @contextlib.contextmanager
     def _timed(self, seconds, part):
@@ -220,25 +262,26 @@ class Executor:
                 with open(os.path.join(conf.folder, "test_error.txt"), "a+") as f:
                     f.write("%d, %.3f\n" % (epoch, logs["val_loss"] - 1.0))
 
-            if writes and epoch % img_every == 0:
-                with self._timed(seconds, "images"), self.eval_weights(ts):
-                    img_cb.on_epoch_end(epoch)
+            if epoch % img_every == 0:
+                with self._timed(seconds, "images"), self._writer_block(ts) as mine:
+                    if mine:
+                        img_cb.on_epoch_end(epoch)
             stopping = es.update(epoch, logs)
             last = epoch + 1 == conf.epochs
-            if writes and (epoch % ckpt_every == 0 or stopping or last):
-                with self._timed(seconds, "checkpoint"):
-                    self.ckpt.save(epoch, ts)
-            if writes and (epoch % comp_every == 0 or stopping or last):
+            if epoch % ckpt_every == 0 or stopping or last:
+                self._save(epoch, ts, seconds)
+            if epoch % comp_every == 0 or stopping or last:
                 with self._timed(seconds, "export"):
-                    self.ckpt.save_component_weights(os.path.join(conf.folder, "models"),
-                                                     self.eval_params(ts))
+                    params = whole_named(self.model, self.eval_params(ts))
+                    if writes:
+                        self.ckpt.save_component_weights(os.path.join(conf.folder, "models"),
+                                                         params)
             log.info("Epoch %d seconds: %s", epoch,
                      ", ".join("%s %.2f" % kv for kv in seconds.items()))
             if stopping:
                 log.info("Finished training from early stopping criterion")
                 self.on_train_end(ts)
-                if writes:
-                    self.ckpt.save(epoch + 1, ts)
+                self._save(epoch + 1, ts, {})
             barrier(self.mesh)
             if stopping:
                 break
@@ -324,8 +367,8 @@ class Executor:
         """ModelTester on the eval weights of the final (or restored) state;
         under a mesh on rank 0 alone, which writes its results (the
         weights are the same on every rank)."""
-        if self.writes:
-            with self.eval_weights(self.final_state):
+        with self._writer_block(self.final_state) as mine:
+            if mine:
                 ModelTester(self.model, self.conf, device=self.device).run()
         barrier(self.mesh)
 
@@ -417,7 +460,7 @@ class MMSDNetExecutor(Executor):
 
 
 def make_executor(conf, model, device="cuda", mesh=None):
-    """The executor of conf.model; `mesh` for data parallelism
+    """The executor of conf.model; `mesh` for data and tensor parallelism
     (executor.py:559-562 of the JAX package)."""
     if conf.model == "mmsdnet":
         return MMSDNetExecutor(conf, model, device, mesh)

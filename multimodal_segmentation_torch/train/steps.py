@@ -24,6 +24,14 @@ this rank's rows; each optimizer's gradients are averaged over 'data' in
 one flat all-reduce before its Adam step, and so are the metrics. The
 train state stays replicated: parameters, Adam moments, BatchNorm
 statistics, spectral `u` and the generator.
+
+Tensor parallelism (a mesh with 'model' > 1, the train state sharded by
+parallel/sharding.py::tp_shard_train_state): the ranks of a 'model' row
+hold the same rows and draw the same noise, and each computes the whole
+step, gathering the sharded weights in the forward. The gradient of a
+sharded slice is averaged over 'data' only; that of a replicated leaf over
+'data' and 'model' (identical in exact arithmetic, so the replicated
+leaves stay identical across 'model' however the card orders its sums).
 """
 
 import torch
@@ -110,14 +118,26 @@ def _on_device(model, batch):
     return dev, {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in batch.items()}
 
 
-def _adam_step(opt, params, grads, data=None):
+def _adam_step(opt, params, grads, data=None, model_axis=None):
     """One optimizer step with `grads`, first averaged over mesh axis
-    `data` when there is one (one flat all-reduce for the list). A
+    `data` when there is one (one flat all-reduce for the list); under
+    tensor parallelism (`model_axis`) the replicated parameters' gradients
+    over 'model' too, and the sharded slices' over 'data' alone. A
     parameter that the loss does not reach gets a zero gradient, as
     jax.grad gives it, so its Adam step count advances with the others
-    and its value stays."""
-    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-    if data is not None:
+    and its value stays. For the fused Adam, which requires it, a gradient
+    that autograd hands back in another memory layout (cuDNN's weight
+    gradient of a channels-last input) is made contiguous, the layout of
+    its parameter and Adam moments."""
+    fused = opt.defaults.get("fused")
+    grads = [torch.zeros_like(p) if g is None else g.contiguous() if fused else g
+             for p, g in zip(params, grads)]
+    if model_axis is not None:
+        sharded = [getattr(p, "model_axis", None) is not None for p in params]
+        all_reduce_flat_([g for g, s in zip(grads, sharded) if s], data.group, data.size)
+        all_reduce_flat_([g for g, s in zip(grads, sharded) if not s],
+                         (data.group, model_axis.group), data.size * model_axis.size)
+    elif data is not None:
         all_reduce_flat_(grads, data.group, data.size)
     for p, g in zip(params, grads):
         p.grad = g
@@ -128,12 +148,16 @@ def _adam_step(opt, params, grads, data=None):
 
 class _Steps:
     """What the steps of both models share: the model, the configuration
-    and, under a mesh, its 'data' axis."""
+    and, under a mesh, its 'data' axis and, where it has more than one
+    rank, its 'model' axis."""
 
     def __init__(self, model, conf, mesh=None):
         self.model = model
         self.conf = conf
         self.data = None if mesh is None else mesh.axis("data")
+        self.model_axis = None
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            self.model_axis = mesh.axis("model")
         model.set_mesh(mesh)
 
     def _global(self, rows):
@@ -155,7 +179,7 @@ class _Steps:
                 for key, v in noise.items()}
 
     def _adam(self, opt, params, grads):
-        _adam_step(opt, params, grads, self.data)
+        _adam_step(opt, params, grads, self.data, self.model_axis)
 
     def _metrics(self, metrics):
         """The detached metrics; under a mesh in f32, averaged over 'data'

@@ -14,6 +14,13 @@ The component export writes <folder>/<component>.npz with the component's
 parameters in the JAX package's layout (Flax paths joined by '/', HWIO
 conv kernels, (in, out) dense kernels), so either package reads the
 other's files.
+
+Under tensor parallelism (parallel/sharding.py) both hold whole tensors:
+`state_of` gathers the sharded parameters, their Adam moments and SWA
+copies (a collective: every rank calls it, and the writer passes the
+result to `save`), and `restore` cuts each whole tensor to this rank's
+part. So a checkpoint saved on a mesh resumes in one process, and one
+saved in one process resumes on a mesh.
 """
 
 import logging
@@ -23,6 +30,12 @@ import re
 import numpy as np
 import torch
 
+from multimodal_segmentation_torch.parallel.sharding import (
+    local_optimizer_state,
+    local_part,
+    whole_named,
+    whole_optimizer_state,
+)
 from multimodal_segmentation_torch.utils.convert import (
     component_state_dict,
     flax_paths,
@@ -53,18 +66,30 @@ class CheckpointManager:
         epochs = self.epochs()
         return epochs[-1] if epochs else None
 
-    def save(self, epoch, ts):
-        """Write `ts` as the checkpoint of `epoch`; returns its path."""
-        state = {
-            "model": ts.model.state_dict(),
-            "swa": ts.swa,
-            "opt_gen": ts.opt_gen.state_dict(),
-            "opt_disc": {n: o.state_dict() for n, o in ts.opt_disc.items()},
-            "opt_zreg": None if ts.opt_zreg is None else ts.opt_zreg.state_dict(),
+    @staticmethod
+    def state_of(ts):
+        """What a checkpoint of `ts` holds, every sharded leaf whole: the
+        model's state_dict, the SWA average, the state_dict of every
+        optimizer, the step noise generator's state, the step and epoch
+        counts. Under tensor parallelism a collective."""
+        model = ts.model
+        return {
+            "model": whole_named(model, model.state_dict()),
+            "swa": whole_named(model, ts.swa),
+            "opt_gen": whole_optimizer_state(ts.opt_gen),
+            "opt_disc": {n: whole_optimizer_state(o) for n, o in ts.opt_disc.items()},
+            "opt_zreg": None if ts.opt_zreg is None else whole_optimizer_state(ts.opt_zreg),
             "generator": ts.generator.get_state(),
             "step": ts.step,
             "epoch": ts.epoch,
         }
+
+    def save(self, epoch, ts, state=None):
+        """Write `ts` as the checkpoint of `epoch`, from `state` (state_of
+        its train state, which the caller gathered on every rank) or, by
+        default, state_of(ts); returns its path."""
+        if state is None:
+            state = self.state_of(ts)
         path = self._path(epoch)
         tmp = path + ".tmp"
         torch.save(state, tmp)
@@ -76,20 +101,26 @@ class CheckpointManager:
     def restore(self, epoch, ts):
         """Load the checkpoint of `epoch` into `ts`: into its model, its SWA
         tensors and the optimizers it already holds (their parameter order
-        is the one they were saved with), so nothing is rebound."""
+        is the one they were saved with), so nothing is rebound; a sharded
+        leaf takes this rank's part of the whole."""
         state = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
-        ts.model.load_state_dict(state["model"])
+        params = dict(ts.model.named_parameters())
+
+        def local(named):
+            return {n: local_part(t, params[n]) if n in params else t for n, t in named.items()}
+        ts.model.load_state_dict(local(state["model"]))
+        swa = local(state["swa"])
         with torch.no_grad():
             for n, t in ts.swa.items():
-                t.copy_(state["swa"][n])
-        ts.opt_gen.load_state_dict(state["opt_gen"])
+                t.copy_(swa[n])
+        ts.opt_gen.load_state_dict(local_optimizer_state(ts.opt_gen, state["opt_gen"]))
         for n, opt in ts.opt_disc.items():
-            opt.load_state_dict(state["opt_disc"][n])
+            opt.load_state_dict(local_optimizer_state(opt, state["opt_disc"][n]))
         if (ts.opt_zreg is None) != (state.get("opt_zreg") is None):
             raise ValueError("%s: the checkpoint's Z-regressor Adam does not match the "
                              "train state's" % self._path(epoch))
         if ts.opt_zreg is not None:
-            ts.opt_zreg.load_state_dict(state["opt_zreg"])
+            ts.opt_zreg.load_state_dict(local_optimizer_state(ts.opt_zreg, state["opt_zreg"]))
         ts.generator.set_state(state["generator"])
         ts.step = state["step"]
         ts.epoch = state["epoch"]
@@ -97,8 +128,9 @@ class CheckpointManager:
 
     def save_component_weights(self, folder, params):
         """Write <folder>/<component>.npz for every component in `params`
-        ({'<component>.<torch key>': tensor}, such as a TrainState's swa),
-        in the JAX key layout (dafnet_executor.py:292-301)."""
+        ({'<component>.<torch key>': whole tensors, such as a TrainState's
+        swa, through sharding.whole_named under tensor parallelism}), in
+        the JAX key layout (dafnet_executor.py:292-301)."""
         os.makedirs(folder, exist_ok=True)
         for name, tree in params_by_component(params).items():
             np.savez_compressed(os.path.join(folder, "%s.npz" % name), **flax_paths(tree))

@@ -93,6 +93,19 @@ def _to_torch(leaf, arr):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def flax_shape(key, shape):
+    """The shape the JAX package gives the leaf that the port keeps under
+    state_dict key `key` with torch shape `shape`: conv kernels HWIO
+    (DHWIO), dense kernels (in, out), everything else as it is."""
+    shape = tuple(shape)
+    if key.rsplit(".", 1)[-1] == "weight":
+        if len(shape) in _TO_FLAX:
+            return tuple(shape[i] for i in _TO_FLAX[len(shape)])
+        if len(shape) == 2:
+            return shape[::-1]
+    return shape
+
+
 def component_state_dict(params, batch_stats=None, spectral=None):
     """state_dict for one component from its JAX params, batch_stats and
     spectral trees."""

@@ -1086,3 +1086,61 @@ def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
         assert (sd1[k] - sd0[k]).abs().max().item() <= 2.001 * 4 * lr, k
     assert l0 == l1 == {"tps_warp_fwd": 4, "tps_warp_bwd": 2, "nearest_warp": 6, "round_ste": 4,
                         "tps_flow_dbg": 0}
+
+
+# ------------------------------------------ B1's general entry, tensor parallelism
+
+@pytest.mark.parametrize("inverse,order,dims,C,dtype", [
+    (True, 2, (5, 5), 8, torch.float32), (True, 2, (5, 5), 8, torch.bfloat16),
+    (False, 3, (5, 5), 8, torch.float32), (True, 3, (4, 4), 3, torch.float32),
+    (False, 1, (6, 5), 8, torch.float32)])
+def test_general_warp_entry_matches_plain(cuda, inverse, order, dims, C, dtype):
+    """B1's general entry (per-image centres, another order, another grid;
+    C = 3 takes the channel-at-a-time blend) against its plain version
+    (the same coefficients and centres, the flow in float64): 2e-4 in f32,
+    2e-2 in bf16; through tps_warp it is one general launch."""
+    r = np.random.RandomState(order)
+    B, H, W = 3, 64, 48
+    vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(cuda, dtype)
+    n = dims[0] * dims[1]
+    off = torch.from_numpy(((r.rand(B, n, 2) - 0.5) * 0.05).astype(np.float32)).to(cuda)
+    wv = tps.tps_coefficients(off, dims, inverse, order)
+    cp = tps.tps_centres(off, dims, inverse).contiguous()
+    got = cuda_kernels.tps_warp_fwd(vol, wv, cp, order)
+    ref = tps._tps_warp_general_plain(vol, wv, cp, order)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    cuda_kernels.reset_launch_counts()
+    tps.tps_warp(vol, off, dims, inverse, order)
+    assert cuda_kernels.general_launch_count() == 1
+    assert cuda_kernels.launch_counts()["tps_warp_fwd"] == 1
+
+
+def test_tensor_parallel_step_matches_one_process(cuda, tmp_path):
+    """One tiny expert step on a (1, 2) mesh of two gloo ranks on the card,
+    17 leaves sharded (min_features 16), against one process on the card:
+    the generator metrics, computed before the update, equal bit for bit
+    (each rank computes the unsharded forward, the weights gathered
+    exactly)."""
+    import torch_dist
+
+    conf = tiny_test_config()
+    model = build_model(conf, device=cuda)
+    sd = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    r = np.random.RandomState(4)
+    B, hw, nm = conf.batch_size, conf.input_hw, conf.num_masks
+
+    def masks():
+        lab = r.randint(0, nm + 1, size=(B,) + hw)
+        return (lab[..., None] == np.arange(nm)).astype(np.float32)
+    batch = {k: (r.rand(B, *hw, 1) * 2 - 1).astype(np.float32) for k in ("x1", "x2", "dx1", "dx2")}
+    batch.update({k: masks() for k in ("m1", "m2", "dm1", "dm2")})
+    torch.cuda.synchronize()
+    ranks = torch_dist.Ranks(torch_dist.tp_first_step, 2, tmp_path, conf, sd, batch, 16)
+    ref = torch_dist.tp_first_step(None, conf, sd, batch, 16)
+    for got in ranks.join():
+        assert got["sharded"] == 17
+        for k, v in ref["metrics"].items():
+            if not k.startswith("dis_"):
+                assert got["metrics"][k] == v, k

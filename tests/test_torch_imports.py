@@ -40,5 +40,6 @@ def test_every_port_module_imports_without_jax():
             "multimodal_segmentation_torch.parallel.mesh",
             "multimodal_segmentation_torch.parallel.collectives",
             "multimodal_segmentation_torch.parallel.halo",
+            "multimodal_segmentation_torch.parallel.sharding",
             "multimodal_segmentation_torch.tools.gloo_probe",
             "multimodal_segmentation_torch.utils.nan_checks"} <= set(res["modules"])

@@ -82,8 +82,8 @@ def test_maybe_initialize_distributed_is_a_noop_without_the_variables(monkeypatc
 
 def test_a_mesh_of_one_process_holds_everything():
     """Without torch.distributed: a mesh of one rank, axes without groups,
-    shard_batch the whole batch; a larger mesh, or 'model' sharding,
-    raises."""
+    shard_batch the whole batch; a larger mesh, over 'data' or over
+    'model' (tests/test_torch_tp.py runs those on ranks), raises."""
     mesh = make_mesh()
     assert mesh.shape == {"data": 1, "model": 1} and mesh.rank == 0
     assert mesh.axis("data").group is None and distributed.is_writer(mesh)
@@ -92,7 +92,7 @@ def test_a_mesh_of_one_process_holds_everything():
     assert got.dtype == torch.float32 and np.array_equal(got.numpy(), a)
     with pytest.raises(ValueError):
         make_mesh(2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         make_mesh(1, 2)
 
 

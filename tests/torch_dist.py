@@ -375,3 +375,123 @@ def run_volumetric_executor(rank, shape, conf):
     ex.train()
     dice = ex.test()
     return {"dice": dice, "params": {k: v.clone() for k, v in ex.params.state_dict().items()}}
+
+
+# ------------------------------------------------------ tensor parallelism
+
+def tp_state(ts):
+    """The whole train state after a run (every sharded leaf gathered:
+    a collective on a mesh): the state_dict, the SWA average and each
+    optimizer's state_dict."""
+    from multimodal_segmentation_torch.utils.checkpoint import CheckpointManager
+
+    state = CheckpointManager.state_of(ts)
+    return {k: state[k] for k in ("model", "swa", "opt_gen", "opt_disc", "opt_zreg", "step")}
+
+
+def tp_run(mesh, conf, state_dict, batches, min_features, ckpt=None, save=None):
+    """`conf`'s model from `state_dict` on `mesh` (None: one process), its
+    train state sharded at `min_features`, restored from checkpoint folder
+    `ckpt` (epoch 0) if given; then `batches`: (kind, batch, noise) steps.
+    Then one SWA update, and with `save` a checkpoint of epoch 0 there.
+    Returns the metrics, the whole state and, on a mesh, the local shapes
+    of the sharded parameters."""
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.parallel import tp_shard_train_state
+    from multimodal_segmentation_torch.parallel.sharding import sharded_parameters
+    from multimodal_segmentation_torch.train import create_train_state, make_steps
+    from multimodal_segmentation_torch.train.swa import swa_update
+    from multimodal_segmentation_torch.utils.checkpoint import CheckpointManager
+
+    model = build_model(conf, device="cpu")
+    model.load_state_dict(state_dict)
+    steps = make_steps(model, conf, mesh)
+    ts = create_train_state(model, conf)
+    if mesh is not None:
+        tp_shard_train_state(mesh, ts, min_features)
+    if ckpt is not None:
+        CheckpointManager(ckpt).restore(0, ts)
+    metrics = []
+    for kind, batch, noise in batches:
+        if mesh is not None:
+            from multimodal_segmentation_torch.parallel import shard_batch
+
+            batch = shard_batch(mesh, batch, "cpu")
+        ts, m = getattr(steps, "step_" + kind)(ts, batch, noise)
+        metrics.append({k: float(v) for k, v in m.items()})
+    swa_update(ts.swa, dict(model.named_parameters()), 1, 0)
+    if save is not None:
+        mgr = CheckpointManager(save)
+        state = mgr.state_of(ts)
+        if mesh is None or mesh.rank == 0:
+            mgr.save(0, ts, state)
+    local = {n: tuple(p.shape) for n, p in sharded_parameters(model).items()}
+    moments = {n: tuple(ts.opt_gen.state[p]["exp_avg"].shape)
+               for n, p in sharded_parameters(model).items() if p in ts.opt_gen.state}
+    return {"metrics": metrics, "state": tp_state(ts), "local_shapes": local,
+            "moment_shapes": moments}
+
+
+def tp_job(rank, shape, jobs, exec_conf=None):
+    """On a ('data', 'model') mesh of `shape`: tp_run for each of `jobs`
+    ({name: tp_run's arguments after mesh}), then, with `exec_conf`, the
+    DAFNet executor (train, then test) at min_features 16."""
+    from multimodal_segmentation_torch.parallel import count_sharded_leaves, make_mesh
+
+    mesh = make_mesh(*shape)
+    out = {name: tp_run(mesh, *args) for name, args in jobs.items()}
+    for name, args in jobs.items():
+        out[name]["count"] = count_sharded_leaves(mesh, args[1], args[3])
+    if exec_conf is not None:
+        out["executor"] = tp_executor(mesh, exec_conf)
+    return out
+
+
+def tp_executor(mesh, conf):
+    """The DAFNet executor at `conf` on `mesh` (None: one process), its
+    state sharded at min_features 16: train, then test. The SWA average,
+    the step count and the parameters' local shapes."""
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.parallel import sharding
+    from multimodal_segmentation_torch.parallel.sharding import sharded_parameters, whole_named
+    from multimodal_segmentation_torch.train.executor import make_executor
+
+    # the tiny config's widest leaf is far below the executor's 256
+    default, sharding.MIN_FEATURES = sharding.MIN_FEATURES, 16
+    try:
+        model = build_model(conf, device="cpu")
+        ex = make_executor(conf, model, device="cpu", mesh=mesh)
+        ts = ex.train()
+        ex.test()
+    finally:
+        sharding.MIN_FEATURES = default
+    return {"swa": {k: v.clone() for k, v in whole_named(model, ts.swa).items()},
+            "step": ts.step, "sharded": sorted(sharded_parameters(model))}
+
+
+def tp_first_step(rank, conf, state_dict, batch, min_features, device="cuda"):
+    """One expert step on the card from `state_dict`, alone (rank None) or
+    on a (1, 2) mesh with the state sharded at `min_features`, on PyTorch's
+    native convolutions (cuDNN off: the same algorithm in every process):
+    its metrics and the number of sharded leaves."""
+    from multimodal_segmentation_torch.models import build_model
+    from multimodal_segmentation_torch.parallel import make_mesh, tp_shard_train_state
+    from multimodal_segmentation_torch.parallel.sharding import sharded_parameters
+    from multimodal_segmentation_torch.train import create_train_state, make_steps
+
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        mesh = None if rank is None else make_mesh(1, 2)
+        model = build_model(conf, device=device)
+        model.load_state_dict(state_dict)
+        steps = make_steps(model, conf, mesh)
+        ts = create_train_state(model, conf)
+        if mesh is not None:
+            tp_shard_train_state(mesh, ts, min_features)
+        ts, m = steps.step_supervised(ts, batch)
+    finally:
+        torch.backends.cudnn.enabled = was
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "sharded": len(sharded_parameters(model))}
