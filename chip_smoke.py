@@ -34,9 +34,11 @@ Phases, one JSON line each:
                 rotation against the CPU's, and the step's two rotations)
   warp-general  (in the kernels line) B1's general entry (inverse mapping,
                 orders 1-4, other control grids) at B = 12, 192x192, C = 8
-                against its plain version, 2e-4 f32 / 2e-2 bf16; the public
-                tps_warp forward and backward (B2) against the plain
-                route's autograd; timed against grid_sample
+                against its plain version, 2e-4 f32 / 2e-2 bf16; a
+                coordinate ramp's warp against the plain locations, 1e-4
+                px; the public tps_warp forward and backward (B2) against
+                the plain route's autograd; every case timed against
+                grid_sample, with its bound from the kernel's SASS counts
   debug-warp    the warp-bisect tool (multimodal_segmentation_torch.tools.
                 debug_warp_kernel) on the card: its five max differences
                 and the kernel launches of that run
@@ -517,6 +519,28 @@ GENERAL_CASES = (
     ("order4", False, 4, (5, 5), ("float32",)),
     ("cp4x4", False, 2, (4, 4), ("float32",)),
 )
+# float64 operations (an FMA counted as 2) of B1's general entry, from
+# cuobjdump -sass of its device functions for sm_90a: the basis
+# of one (point, centre), its distance included: order 2 DADD 4, DMUL 4,
+# DFMA 8 (the reduced log: 7 DFMA, 1 DMUL, 2 DADD); order 4 one DMUL more;
+# order 1 DADD 2, DMUL 4, DFMA 6 (sqrt's fast path: MUFU.RSQ64H, 3 DMUL, 5
+# DFMA); order 3 one DMUL more. An image's term of one (point, centre): 2
+# DFMA. The bound counts the basis once a point where the centres are
+# shared, once a (point, image) where they are not.
+GENERAL_BASIS_F64 = {1: 18, 2: 24, 3: 19, 4: 25}
+GENERAL_TERM_F64 = 4
+# per (point, image): the affine rows and the scale to pixels, from the
+# source's expression (2 DMUL, 1 DFMA, 2 DADD a coordinate)
+GENERAL_POINT_F64 = 12
+
+
+def general_bound(B, H, W, C, n_cp, order, per_image):
+    """(f32 operations, f64 operations) of the general entry's work: the
+    float64 flow (GENERAL_*_F64) and, per (point, image), ~20 f32
+    operations for the corner weights and 8 a channel for the blend."""
+    basis = (B if per_image else 1) * H * W * n_cp * GENERAL_BASIS_F64[order]
+    f64 = basis + B * H * W * (n_cp * GENERAL_TERM_F64 + GENERAL_POINT_F64)
+    return B * H * W * (20 + 8 * C), f64
 
 
 def warp_general_phase(torch, dev):
@@ -525,15 +549,19 @@ def warp_general_phase(torch, dev):
     +-0.025: the inverse mapping in f32 and bf16, orders 1, 3 and 4 and
     cp_dims (4, 4) forward in f32, against its plain version
     (tps._tps_warp_general_plain: the same coefficients and centres, the
-    flow in float64) within 2e-4 in f32 and 2e-2 in bf16. Then each case
-    through the public tps_warp, forward and backward, with the counts set
-    to 0 just before (the path's launches: one B1 general and one B2 a
-    case): B2's grad_vol within 1e-5 of its largest entry of the plain
-    route's autograd on the card, and the offsets' gradient (autograd
-    through the solve) within 1e-3 of its largest entry (B2's location
-    gradient is held to 5e-5 + 1e-4 relative, warp_bwd_phase). Timed at
-    the inverse f32 case against grid_sample at the plain version's
-    locations."""
+    flow in float64) within 2e-4 in f32 and 2e-2 in bf16. The sample
+    locations themselves: a coordinate ramp (channel 0 the row, channel 1
+    the column, f32), whose bilinear blend is the location, warped at every
+    case, within 1e-4 px of tps._general_locations where the four corners
+    are inside. Then each case through the public tps_warp, forward and
+    backward, with the counts set to 0 just before (the path's launches:
+    one B1 general and one B2 a case): B2's grad_vol within 1e-5 of its
+    largest entry of the plain route's autograd on the card, and the
+    offsets' gradient (autograd through the solve) within 1e-3 of its
+    largest entry (B2's location gradient is held to 5e-5 + 1e-4
+    relative, warp_bwd_phase). Every case timed against its plain version
+    and grid_sample at the plain version's locations, with its bound
+    (general_bound); the inverse f32 case is the summary's row."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -544,13 +572,17 @@ def warp_general_phase(torch, dev):
     r = np.random.RandomState(12)
     vol32 = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(dev)
     w = torch.from_numpy(r.randn(B, H, W, C).astype(np.float32)).to(dev)
-    res, launches, timed = {}, None, None
+    ramp = torch.zeros(B, H, W, C, device=dev)
+    ramp[..., 0] = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    ramp[..., 1] = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    res, splines = {}, {}
     cuda_kernels.reset_launch_counts()
     for name, inverse, order, dims, dtypes in GENERAL_CASES:
         n = dims[0] * dims[1]
         off = torch.from_numpy(((r.rand(B, n, 2) - 0.5) * 0.05).astype(np.float32)).to(dev)
         wv = tps.tps_coefficients(off, dims, inverse, order)
         cp = tps.tps_centres(off, dims, inverse).contiguous()
+        splines[name] = (wv, cp, order)
         row = {"inverse": inverse, "order": order, "cp_dims": list(dims),
                "coef_absmax": wv.abs().max().item()}
         for dtype in dtypes:
@@ -565,8 +597,15 @@ def warp_general_phase(torch, dev):
                   % (name, dtype, err, tol))
             row[dtype] = {"max_abs_err": err,
                           "outside_share": (ref == 0).all(-1).float().mean().item()}
-            if name == "inverse" and dtype == "float32":
-                timed = (vol, wv, cp, order)
+        locs = tps._general_locations(wv, cp, (H, W), order)
+        seen = tps_warp_fwd(ramp, wv, cp, order)[..., :2].reshape(B, H * W, 2)
+        y, x = locs[..., 0], locs[..., 1]
+        inside = (y >= 0) & (y < H - 1) & (x >= 0) & (x < W - 1)
+        gap = (seen - locs).abs().amax(-1)[inside].max().item()
+        check(inside.float().mean().item() > 0.5, "ramp %s: few points inside" % name)
+        check(gap <= 1e-4, "general warp %s: the ramp's locations %.3g px > 1e-4 from "
+              "_general_locations" % (name, gap))
+        row["ramp"] = {"max_px": gap, "inside_share": inside.float().mean().item()}
         res[name] = row
     fwd_checks = cuda_kernels.general_launch_count()
 
@@ -597,33 +636,45 @@ def warp_general_phase(torch, dev):
                                            "tps_warp_bwd") else 0 for k in launches}
     check(launches == want, "warp-general launches %s != %s" % (launches, want))
 
-    vol, wv, cp, order = timed
-    n = cp.shape[-2]
-    # grid_sample at the plain version's f32 locations (its flow in float64)
-    locs = tps._general_locations(wv, cp, (H, W), order)
-    grid = grid_of(torch, locs, H, W)
+    # every case timed: bytes vol read and out written once, wv and the
+    # centres read once; operations general_bound's
+    buffers = {}
+    for name, _, _, _, dtypes in GENERAL_CASES:
+        wv, cp, order = splines[name]
+        n = cp.shape[-2]
+        # grid_sample at the plain version's f32 locations (its flow in float64)
+        locs = tps._general_locations(wv, cp, (H, W), order)
+        for dtype in dtypes:
+            vol = vol32.to(getattr(torch, dtype))
+            grid = grid_of(torch, locs, H, W).to(vol.dtype)
 
-    def library(v):
-        return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
-                             padding_mode="zeros", align_corners=True)
+            def library(v, grid=grid):
+                return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
 
-    # bound: vol read and out written once, wv and the centres read once;
-    # operations: per (point, image) the float64 flow (n_cp terms of ~30
-    # for a log or a pow, at the f64 rate), and in f32 ~20 for the corner
-    # weights and 8 per channel for the blend
-    nbytes = vol.numel() * vol.element_size()
-    m = measure(rotating(lambda: vol.clone(), nbytes),
-                lambda v: tps_warp_fwd(v, wv, cp, order),
-                lambda v: tps._tps_warp_general_plain(v, wv, cp, order), library,
-                2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
-                B * H * W * (20 + 8 * C), f64_flops=B * H * W * n * 30)
-    m["library_max_abs_diff"] = (library(vol).permute(0, 2, 3, 1)
-                                 - tps_warp_fwd(vol, wv, cp, order)).abs().max().item()
+            nbytes = vol.numel() * vol.element_size()
+            if dtype not in buffers:
+                buffers[dtype] = rotating(lambda: vol.clone(), nbytes)
+            f32_ops, f64_ops = general_bound(B, H, W, C, n, order, cp.dim() == 3)
+            m = measure(buffers[dtype],
+                        lambda v, wv=wv, cp=cp, order=order: tps_warp_fwd(v, wv, cp, order),
+                        lambda v, wv=wv, cp=cp, order=order: tps._tps_warp_general_plain(
+                            v, wv, cp, order),
+                        library, 2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
+                        f32_ops, f64_flops=f64_ops)
+            m["library_max_abs_diff"] = (library(vol).permute(0, 2, 3, 1).float()
+                                         - tps_warp_fwd(vol, wv, cp, order).float()
+                                         ).abs().max().item()
+            res[name][dtype].update(m)
+    del buffers
+    timed = res["inverse"]["float32"]
     return {"shape": [B, H, W, C], "cases": res, "checked_launches": fwd_checks,
             "launches": launches, "max_abs_err": max(
                 row[dt]["max_abs_err"] for row in res.values() for dt in ("float32", "bfloat16")
                 if dt in row),
-            "timed_case": "inverse float32", **m}
+            "ramp_max_px": max(row["ramp"]["max_px"] for row in res.values()),
+            "timed_case": "inverse float32",
+            **{k: v for k, v in timed.items() if k not in ("max_abs_err", "outside_share")}}
 
 
 def bwd_cases(torch, r, B, H, W, dev):
@@ -3618,7 +3669,11 @@ def main(argv=None):
         "work": "B=12 192x192 C=8 float32, inverse mapping (per-image centres), order 2, "
                 "25 points; also orders 1, 3, 4 and a 4x4 grid, and bf16 (max_abs_err over "
                 "all): tps_warp's general entry, launched by the warp-general path",
-        "more_shapes": {},
+        "more_shapes": {"%s %s" % (case, dtype): {f: row[dtype][f] for f in (
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")}
+            for case, row in g["cases"].items() for dtype in ("float32", "bfloat16")
+            if dtype in row and (case, dtype) != ("inverse", "float32")},
     })
     emit("total", seconds=time.perf_counter() - _T0)
     print(smi)

@@ -45,18 +45,31 @@
 // batch (the control grid) or one set per image (the inverse mapping's
 // warped control points). Above, the 25-point order-2 shared-grid case
 // keeps its own specialisation, so the main path's code and output do not
-// move. Here a thread serves one (point, image) pair, with the image's
-// coefficients and centres staged in shared memory: with per-image
-// centres the basis cannot be shared across images. The flow is
-// evaluated in float64 from the f32 inputs (the kernel's own rounding
-// then stays far below 1e-4 px): orders 3 and 4 have coefficients up to
-// ~12 at offsets of +-0.025 (order 2: ~1) and their sums cancel more, so
-// an f32 evaluation is off by ~1e-3 px, and two f32 evaluations that sum
-// in another order differ by as much. The blend is B1's (Pixel below).
-// Bound: the operations. At B = 12, 192x192, C = 8 and 25 points the
-// float64 flow's ~3.3e8 operations (~30 a point and centre) take ~9.8 us
-// of the card's 34 TFLOP/s (non-tensor FP64), over the bytes' 8.5 us.
-// A simple kernel: it is not on a training path.
+// move. The flow is evaluated in float64 from the f32 inputs (the
+// kernel's own rounding then stays far below 1e-4 px): orders 3 and 4
+// have coefficients up to ~12 at offsets of +-0.025 (order 2: ~1) and
+// their sums cancel more, so an f32 evaluation is off by ~1e-3 px, and two
+// f32 evaluations that sum in another order differ by as much. The blend
+// is B1's (Pixel below).
+// Bound and design. What the entry must do is B1's bytes (8.5 us at B =
+// 12 f32) and the float64 flow, which the card issues at half its f32
+// rate (34 TFLOP/s). The order is a template parameter (1 to 4; a generic
+// instantiation takes any other), so the basis neither branches on it nor
+// calls pow, and the log is a reduced-range float64 log (log_reduced: 10
+// FP64 instructions and a table lookup) in place of libdevice's, valid
+// for the clamped, normal argument. The coefficients, centres and log
+// table are staged in shared memory as float64. With shared centres a
+// thread serves a point of 4 images and sums their flows centre by
+// centre: the basis once a centre, then 2 FMAs an image, 8 independent
+// chains, so the FP64 latency overlaps within the thread. With per-image
+// centres (the inverse mapping) nothing is shared between images and a
+// thread serves one (point, image). Blocks are 128 threads. Measured on
+// the H100 (PERF.md, PR 13), this beat the layouts that hold more in
+// registers: the basis of 32 doubles kept for a chunk of 8 images, or
+// image k + 1's corner loads in flight while image k is blended (122-194
+// registers a thread, 8 warps an SM), and chunks of 2 or 8 images, or of
+// more than one with per-image centres. chip_smoke.py's warp-general
+// phase counts the bound from the basis' SASS.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -257,56 +270,145 @@ tps_warp_fwd_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
       [&](const Pixel<T, kWords>& px) { px.finish(C, W); });
 }
 
-// phi(r2) of the given polyharmonic order, as ops/tps.py::_phi, in float64
-__device__ __forceinline__ double phi_general(double r2, int order) {
-  const double r2c = fmax(r2, 1e-10);
-  if (order == 1) return sqrt(r2c);
-  if (order == 2) return 0.5 * r2 * log(r2c);
-  if (order == 4) return 0.5 * r2 * r2 * log(r2c);
-  if (order % 2 == 0) return 0.5 * pow(r2c, 0.5 * order) * log(r2c);
-  return pow(r2c, 0.5 * order);
-}
+// ---- the general entry
 
 constexpr int kMaxControlPoints = 32;
+// the log table: 2^7 bins of the mantissa, as tests/test_torch_tps_general.py::
+// test_reduced_range_log_matches_numpy models it
+constexpr int kLogBits = 7;
+constexpr int kLogBins = 1 << kLogBits;
+constexpr double kLn2 = 0.6931471805599453;
 
-// One (point, image) a thread: blockIdx.y is the image. cp: (n_cp, 2), or
-// (B, n_cp, 2) with per_image; wv: (B, n_cp + 3, 2).
-template <typename T, int kWords>
-__global__ void __launch_bounds__(kThreads)
+// The general entry's block and the images a thread serves where the
+// centres are shared (with per-image centres, one)
+constexpr int kGeneralThreads = 128;
+constexpr int kGeneralChunk = 4;
+
+// The general entry's shared memory: the log table, each image's
+// coefficients [w; v] and the centres (the chunk's, or the one image's) as
+// float64 (y, x) rows.
+struct GeneralShared {
+  double2 log[kLogBins];
+  double2 wv[kGeneralChunk][kMaxControlPoints + 3];
+  double2 cp[kMaxControlPoints];
+};
+
+// log[j] = (1 / c_j rounded to double, -log of it), c_j = 1 + (j + 0.5) / 2^7:
+// the centre of mantissa bin j
+__device__ __forceinline__ void stage_log_table(double2* s_log) {
+  for (int j = threadIdx.x; j < kLogBins; j += blockDim.x) {
+    const double inv = 1.0 / (1.0 + (j + 0.5) / kLogBins);
+    s_log[j] = make_double2(inv, -log(inv));
+  }
+}
+
+// log(x) of a positive normal double, here max(r2, 1e-10), within ~3e-15
+// of the correctly rounded log over [1e-10, 8]. x = 2^k m with m in [1, 2);
+// the top 7 bits of m's fraction pick bin j; r = m / c_j - 1 = fma(m, 1/c_j,
+// -1), |r| < 2^-8 (one rounding: m * (1/c_j) is exact inside the fma);
+// log(1 + r) is its Taylor polynomial to degree 6 (the first term left out,
+// r^7 / 7, is below 3e-18); log x = k ln2 - log(1/c_j) + log(1 + r). The
+// exponent comes from the bits: k = (bits of 2^52 + biased exponent) -
+// (2^52 + 1023), one DADD. 7 DFMA, 1 DMUL, 2 DADD and one shared load,
+// where libdevice's log handles every range and special value. Its numpy
+// model is tests/test_torch_tps_general.py::_log_model.
+__device__ __forceinline__ double log_reduced(double x, const double2* s_log) {
+  const int hi = __double2hiint(x);
+  const double2 t = s_log[(hi >> (20 - kLogBits)) & (kLogBins - 1)];
+  const double m = __hiloint2double((hi & 0x000fffff) | 0x3ff00000, __double2loint(x));
+  const double k = __hiloint2double(0x43300000, hi >> 20) - 4503599627371519.0;
+  const double r = fma(m, t.x, -1.0);
+  double p = fma(r, -1.0 / 6.0, 0.2);
+  p = fma(r, p, -0.25);
+  p = fma(r, p, 1.0 / 3.0);
+  p = fma(r, p, -0.5);
+  p = fma(r * r, p, r);
+  return fma(k, kLn2, t.y + p);
+}
+
+// phi(r2) of polyharmonic order kOrder (1 to 4), or of the runtime `order`
+// with kOrder = 0, as ops/tps.py::_phi: odd orders r2c^((order-1)/2)
+// sqrt(r2c), even ones 0.5 r2c^(order/2) log(r2c), r2c = max(r2, 1e-10),
+// with the unclamped r2 outside the log for orders 2 and 4; integer powers,
+// no pow.
+template <int kOrder>
+__device__ __forceinline__ double phi_general(double r2, int order, const double2* s_log) {
+  const double r2c = fmax(r2, 1e-10);
+  if constexpr (kOrder == 1) {
+    return sqrt(r2c);
+  } else if constexpr (kOrder == 2) {
+    return 0.5 * r2 * log_reduced(r2c, s_log);
+  } else if constexpr (kOrder == 3) {
+    return r2c * sqrt(r2c);
+  } else if constexpr (kOrder == 4) {
+    return 0.5 * r2 * r2 * log_reduced(r2c, s_log);
+  } else {
+    double p = 1.0;
+    for (int j = 0; j < order / 2; ++j) p *= r2c;
+    return order % 2 == 0 ? 0.5 * p * log_reduced(r2c, s_log) : p * sqrt(r2c);
+  }
+}
+
+// The general entry: a thread serves one point of kImages images
+// (blockIdx.y): with shared centres (cp: (n_cp, 2)) a chunk of 4, whose
+// flows it sums centre by centre, evaluating the centre's float64 basis
+// once and adding it to every image's flow (2 FMAs an image), 8
+// independent chains; with per-image centres (kPerImage, cp: (B, n_cp,
+// 2)) one image, whose basis no other image shares. Then it blends each
+// image. wv: (B, n_cp + 3, 2).
+template <typename T, int kWords, int kOrder, bool kPerImage>
+__global__ void __launch_bounds__(kGeneralThreads)
 tps_warp_general_kernel(const T* __restrict__ vol, const float* __restrict__ wv,
-                        const float* __restrict__ cp, T* __restrict__ out, int H, int W,
-                        int C, int n_cp, int order, int per_image) {
-  __shared__ float s_wv[(kMaxControlPoints + 3) * 2];
-  __shared__ float s_cp[kMaxControlPoints * 2];
-  const int b = blockIdx.y;
-  const float* wv_b = wv + (int64_t)b * (n_cp + 3) * 2;
-  const float* cp_b = per_image ? cp + (int64_t)b * n_cp * 2 : cp;
-  for (int i = threadIdx.x; i < (n_cp + 3) * 2; i += blockDim.x) s_wv[i] = wv_b[i];
-  for (int i = threadIdx.x; i < n_cp * 2; i += blockDim.x) s_cp[i] = cp_b[i];
+                        const float* __restrict__ cp, T* __restrict__ out, int B, int H, int W,
+                        int C, int n_cp, int order) {
+  constexpr int kImages = kPerImage ? 1 : kGeneralChunk;
+  __shared__ GeneralShared s;
+  const int b0 = blockIdx.y * kImages;
+  const int nb = min(kImages, B - b0);
+  const int rows = n_cp + 3;
+  for (int i = threadIdx.x; i < nb * rows; i += blockDim.x) {
+    const float* src = wv + ((int64_t)b0 * rows + i) * 2;
+    s.wv[i / rows][i % rows] = make_double2(src[0], src[1]);
+  }
+  const float* cp_b = kPerImage ? cp + (int64_t)b0 * n_cp * 2 : cp;
+  for (int i = threadIdx.x; i < n_cp; i += blockDim.x)
+    s.cp[i] = make_double2(cp_b[2 * i], cp_b[2 * i + 1]);
+  stage_log_table(s.log);
   __syncthreads();
 
-  const int q = blockIdx.x * kThreads + threadIdx.x;
+  const int q = blockIdx.x * kGeneralThreads + threadIdx.x;
   if (q >= H * W) return;
   const int qi = q / W;
   const int qj = q - qi * W;
   // control_grid((H, W)) in f32, as B1's basis computes it
   const double qy = (double)((float)qi / (float)(H - 1));
   const double qx = (double)((float)qj / (float)(W - 1));
-  double fy = 0.0;
-  double fx = 0.0;
+  double fy[kImages], fx[kImages];
+#pragma unroll
+  for (int k = 0; k < kImages; ++k) fy[k] = fx[k] = 0.0;
+#pragma unroll 2
   for (int i = 0; i < n_cp; ++i) {
-    const double dy = qy - (double)s_cp[2 * i];
-    const double dx = qx - (double)s_cp[2 * i + 1];
-    const double phi = phi_general(dy * dy + dx * dx, order);
-    fy += phi * (double)s_wv[2 * i];
-    fx += phi * (double)s_wv[2 * i + 1];
+    const double dy = qy - s.cp[i].x;
+    const double dx = qx - s.cp[i].y;
+    const double phi = phi_general<kOrder>(dy * dy + dx * dx, order, s.log);
+#pragma unroll
+    for (int k = 0; k < kImages; ++k) {
+      if (k < nb) {
+        const double2 w = s.wv[k][i];
+        fy[k] = fma(phi, w.x, fy[k]);
+        fx[k] = fma(phi, w.y, fx[k]);
+      }
+    }
   }
-  const float* v = s_wv + 2 * n_cp;  // affine rows multiply qy, qx, 1
-  fy += qy * (double)v[0] + qx * (double)v[2] + (double)v[4];
-  fx += qy * (double)v[1] + qx * (double)v[3] + (double)v[5];
-  const Pixel<T, kWords> px = Pixel<T, kWords>::start(
-      vol, out, b, q, H, W, C, (float)(fy * (double)(H - 1)), (float)(fx * (double)(W - 1)));
-  px.finish(C, W);
+#pragma unroll
+  for (int k = 0; k < kImages; ++k) {
+    if (k < nb) {
+      const double2* v = s.wv[k] + n_cp;  // the affine rows multiply qy, qx and 1
+      const double y = (fy[k] + (qy * v[0].x + qx * v[1].x + v[2].x)) * (double)(H - 1);
+      const double x = (fx[k] + (qy * v[0].y + qx * v[1].y + v[2].y)) * (double)(W - 1);
+      Pixel<T, kWords>::start(vol, out, b0 + k, q, H, W, C, (float)y, (float)x).finish(C, W);
+    }
+  }
 }
 
 template <typename T, int kWords>
@@ -316,14 +418,32 @@ void launch(const void* vol, const void* wv, const void* cp, void* out, int B, i
       (const T*)vol, (const float*)wv, (const float*)cp, (T*)out, B, H, W, C);
 }
 
+template <typename T, int kWords, bool kPerImage>
+void launch_general(const void* vol, const void* wv, const void* cp, void* out, int B, int H,
+                    int W, int C, int n_cp, int order, cudaStream_t s) {
+  auto kernel = tps_warp_general_kernel<T, kWords, 0, kPerImage>;
+  if (order == 1)
+    kernel = tps_warp_general_kernel<T, kWords, 1, kPerImage>;
+  else if (order == 2)
+    kernel = tps_warp_general_kernel<T, kWords, 2, kPerImage>;
+  else if (order == 3)
+    kernel = tps_warp_general_kernel<T, kWords, 3, kPerImage>;
+  else if (order == 4)
+    kernel = tps_warp_general_kernel<T, kWords, 4, kPerImage>;
+  const int images = kPerImage ? 1 : kGeneralChunk;
+  const dim3 grid((unsigned)(((int64_t)H * W + kGeneralThreads - 1) / kGeneralThreads),
+                  (unsigned)((B + images - 1) / images));
+  kernel<<<grid, kGeneralThreads, 0, s>>>((const T*)vol, (const float*)wv, (const float*)cp,
+                                          (T*)out, B, H, W, C, n_cp, order);
+}
+
 template <typename T, int kWords>
 void launch_general(const void* vol, const void* wv, const void* cp, void* out, int B, int H,
                     int W, int C, int n_cp, int order, int per_image, cudaStream_t s) {
-  const int64_t n = (int64_t)H * W;
-  const dim3 grid((unsigned)((n + kThreads - 1) / kThreads), (unsigned)B);
-  tps_warp_general_kernel<T, kWords><<<grid, kThreads, 0, s>>>(
-      (const T*)vol, (const float*)wv, (const float*)cp, (T*)out, H, W, C, n_cp, order,
-      per_image);
+  if (per_image)
+    launch_general<T, kWords, true>(vol, wv, cp, out, B, H, W, C, n_cp, order, s);
+  else
+    launch_general<T, kWords, false>(vol, wv, cp, out, B, H, W, C, n_cp, order, s);
 }
 
 template <typename T>

@@ -218,8 +218,11 @@ def tps_warp_fwd(vol, wv, cp, order=2):
       instructions each (point, image) issues and its loads' latency,
       below grid_sample's time at the main path's shapes (PERF.md);
     * the general entry, any other (n_cp <= 32, order, centres shared or
-      per image): a thread a (point, image), the flow in float64 from the
-      f32 inputs, the same blend. Its plain version is
+      per image): the flow in float64 from the f32 inputs, the order fixed
+      at compile time (1-4, and a generic instantiation), a table-driven
+      float64 log; with shared centres a thread sums 4 images' flows from
+      one basis a centre, with per-image centres it serves one (point,
+      image); the same blend. Its plain version is
       ops/tps.py::_tps_warp_general_plain.
 
     Args:

@@ -1117,6 +1117,55 @@ def test_general_warp_entry_matches_plain(cuda, inverse, order, dims, C, dtype):
     assert cuda_kernels.launch_counts()["tps_warp_fwd"] == 1
 
 
+def _general_spline(r, device, B, n, per_image, order):
+    """(wv, centres) of a spline of n centres: from an offset grid where n
+    is one (16: 4x4, 30: 6x5; the inverse mapping for per-image centres),
+    else random centres in [0, 1]^2 and coefficients near the identity."""
+    grids = {16: (4, 4), 30: (6, 5)}
+    if n in grids:
+        off = torch.from_numpy(((r.rand(B, n, 2) - 0.5) * 0.05).astype(np.float32)).to(device)
+        return (tps.tps_coefficients(off, grids[n], per_image, order),
+                tps.tps_centres(off, grids[n], per_image).contiguous())
+    cp = r.rand(*((B, n, 2) if per_image else (n, 2)))
+    wv = np.concatenate([r.randn(B, n, 2) * 0.02 / n,
+                         np.broadcast_to([[1.0, 0.0], [0.0, 1.0], [0.0, 0.0]], (B, 3, 2))
+                         + r.randn(B, 3, 2) * 0.01], axis=1)
+    return (torch.from_numpy(wv.astype(np.float32)).to(device),
+            torch.from_numpy(cp.astype(np.float32)).to(device))
+
+
+# (B, n_cp, C, dtype, shifted): B across the chunk of 8 (1, 7, 13), every
+# width of the blend (C = 1 and 3 a channel at a time, 8 and 16 by words),
+# and a bf16 source 2 bytes off its 16-byte alignment
+GENERAL_SHAPES = [(1, 1, 1, torch.float32, False), (7, 16, 3, torch.float32, False),
+                  (13, 30, 8, torch.float32, False), (13, 32, 16, torch.float32, False),
+                  (7, 30, 8, torch.bfloat16, False), (13, 16, 8, torch.bfloat16, True)]
+
+
+@pytest.mark.parametrize("per_image", [False, True], ids=["shared", "per-image"])
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6])
+def test_general_warp_entry_redesign_matches_plain(cuda, order, per_image):
+    """B1's general entry at every instantiated order (1-4) and the generic
+    one (5, 6), shared and per-image centres, over GENERAL_SHAPES at 37 x
+    29 (H * W = 1073, not a multiple of the 256-thread block): within 2e-4
+    of its plain version in f32 and 2e-2 in bf16, every value finite."""
+    r = np.random.RandomState(10 * order + per_image)
+    H, W = 37, 29
+    for B, n, C, dtype, shifted in GENERAL_SHAPES:
+        wv, cp = _general_spline(r, cuda, B, n, per_image, order)
+        vol = torch.from_numpy(r.rand(B, H, W, C).astype(np.float32)).to(cuda, dtype)
+        if shifted:
+            buf = torch.empty(vol.numel() + 1, device=cuda, dtype=dtype)
+            vol = buf[1:].view(vol.shape).copy_(vol)
+            assert vol.data_ptr() % 16 != 0
+        got = cuda_kernels.tps_warp_fwd(vol, wv, cp, order)
+        ref = tps._tps_warp_general_plain(vol, wv, cp, order)
+        torch.cuda.synchronize()
+        tol = 2e-4 if dtype == torch.float32 else 2e-2
+        err = (got.float() - ref.float()).abs().max().item()
+        assert torch.isfinite(got.float()).all() and err <= tol, (B, n, C, dtype, shifted, err)
+
+
 def test_tensor_parallel_step_matches_one_process(cuda, tmp_path):
     """One tiny expert step on a (1, 2) mesh of two gloo ranks on the card,
     17 leaves sharded (min_features 16), against one process on the card:

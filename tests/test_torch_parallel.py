@@ -12,16 +12,19 @@ the whole batch and against the JAX package.
   * grouped BatchNorm and the weighted BCE on 2 ranks: within 1e-6 of one
     process on the whole batch (outputs, gradients, running statistics);
   * the DAFNet expert and automated steps and an MMSDNet batch on 2
-    ranks, two steps each, against one process on the whole batches
-    (`_assert_dp_matches`): the metrics within 1e-5 relative; every
-    parameter, BatchNorm statistic and spectral u within 1e-5 of its
-    leaf's largest entry plus 0.05 lr a step, and the conv biases ahead
-    of a BatchNorm within 2 lr a step. Adam divides each gradient entry
-    by its own RMS: an entry near 0 turns the other order of the sums
-    into a step difference of a share of lr (up to 0.036 lr after two
-    steps here), and the biases ahead of a BatchNorm, whose gradient is 0
-    in exact arithmetic and roundoff of either sign, into steps of up to
-    lr either way (3.7 lr after two steps here);
+    ranks, two steps each, against one process on the whole batches, a
+    step at a time from the same train state (`_assert_dp_matches`): the
+    metrics within 1e-5 relative; every parameter, BatchNorm statistic
+    and spectral u within 1e-5 of its leaf's largest entry plus 0.05 lr a
+    step, and the conv biases ahead of a BatchNorm within 2 lr a step.
+    Adam divides each gradient entry by its own RMS: an entry near 0
+    turns the other order of the sums into a step difference of a share
+    of lr, and the biases ahead of a BatchNorm, whose gradient is 0 in
+    exact arithmetic and roundoff of either sign, into steps of up to lr
+    either way; so do the other entries whose one-process gradient is
+    within roundoff of 0 (at most 0.1 % of a leaf). The batches come
+    from a fixed numpy seed (automated pairing draws its candidates from
+    numpy's global state);
     The expert step on 2 ranks is also held against the JAX package's
     one-device step on the whole batch, with the bounds that
     tests/test_torch_dafnet_train.py holds the one-process port to;
@@ -211,6 +214,11 @@ def test_grouped_batchnorm_and_weighted_bce_match_one_process(collective_runs):
 JCONF = jconfig.tiny_test_config()
 TCONF = tconfig.tiny_test_config()
 LR = TCONF.lr
+# numpy's global seed for the batches' assembly (automated pairing's candidates)
+PAIRS_SEED = 5
+# a gradient entry within this share of its leaf's largest is roundoff of 0
+# (f32 sums of terms of the leaf's size: ~1e-7 a term, ~100 ulps here)
+NEAR_ZERO = 1e-5
 
 
 def _biases_ahead_of_batchnorm(model):
@@ -230,42 +238,76 @@ def conv_name(parent, conv):
     return next(n for n, c in parent.named_children() if c is conv)
 
 
-def _training_batches(conf, n):
-    """n batches of the executor's assembly from the synthetic loader."""
+def _training_batches(conf, n, seed=PAIRS_SEED):
+    """n batches of the executor's assembly from the synthetic loader.
+    Automated pairing draws its candidate pairs from numpy's global random
+    state (`expand_pairs`, as the JAX package's): the assembly runs from
+    the state `seed` sets, and the caller's state is restored after it."""
     from multimodal_segmentation_torch.data import init_loader
     from multimodal_segmentation_torch.data.batches import TrainingData
 
-    loader = init_loader("synthetic", hw=conf.input_hw)
-    loader.modalities = list(conf.modality)
-    it = TrainingData(conf, loader).assembled_batches()
-    out = []
-    for _ in range(n):
-        b = next(it)
-        out.append({"sup": b["sup"], "disc": b["disc"]} if conf.model == "mmsdnet" else b["sup"])
+    saved = np.random.get_state()
+    np.random.seed(seed)
+    try:
+        loader = init_loader("synthetic", hw=conf.input_hw)
+        loader.modalities = list(conf.modality)
+        it = TrainingData(conf, loader).assembled_batches()
+        out = []
+        for _ in range(n):
+            b = next(it)
+            out.append({"sup": b["sup"], "disc": b["disc"]} if conf.model == "mmsdnet"
+                       else b["sup"])
+    finally:
+        np.random.set_state(saved)
     return out
 
 
-def _assert_dp_matches(got, ref, model, steps):
+def _assert_dp_matches(got, ref, model, steps, grads=None):
     """The bounds of the data-parallel step against one process."""
     assert got["step"] == ref["step"]
     for g, r in zip(got["metrics"], ref["metrics"], strict=True):
         assert sorted(g) == sorted(r)
         for k in r:
             assert abs(g[k] - r[k]) <= 1e-5 * abs(r[k]), (k, g[k], r[k])
-    _assert_state_close(got["state"], ref["state"], model, steps)
+    _assert_state_close(got["state"], ref["state"], model, steps, grads)
 
 
-def _assert_state_close(got, ref, model, steps):
+def _assert_state_close(got, ref, model, steps, grads=None):
+    """Every entry within 1e-5 of its leaf's largest plus 0.05 lr a step;
+    the conv biases ahead of a BatchNorm within 2 lr a step. Given `grads`
+    (the one-process run's, torch_dist.train_steps), an entry whose
+    gradient was within roundoff of 0 at some step (NEAR_ZERO of its leaf's
+    largest entry) may differ by up to 2 lr a step too, for the biases'
+    reason: Adam turns roundoff of either sign into a step of up to lr
+    either way. Those admitted must be few, at most 0.1 % of any leaf."""
     biases = _biases_ahead_of_batchnorm(model)
     assert biases
     for k, r in ref.items():
-        d = (got[k] - r).abs().max().item()
+        d = (got[k] - r).abs()
         if k in biases:
-            assert d <= 2 * LR * steps, (k, d / LR)
+            assert d.max().item() <= 2 * LR * steps, (k, d.max().item() / LR)
         elif r.is_floating_point():
-            assert d <= 1e-5 * r.abs().max().item() + 0.05 * LR * steps, (k, d / LR)
+            over = d > 1e-5 * r.abs().max().item() + 0.05 * LR * steps
+            if grads is not None and k in grads:
+                near = torch.zeros_like(over)
+                for g in grads[k]:
+                    near |= g.abs() <= NEAR_ZERO * g.abs().max()
+                wide = over & near
+                assert (d[wide] <= 2 * LR * steps).all(), k
+                assert wide.sum().item() <= 1e-3 * r.numel(), (k, wide.sum().item())
+                over &= ~near
+            assert not over.any(), (k, d.max().item() / LR)
         else:
             assert torch.equal(got[k], r), k
+
+
+def _same(a, b):
+    """Equal, bit for bit, through nested dicts and sequences."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return torch.equal(a, b) if torch.is_tensor(a) else a == b
 
 
 @pytest.mark.parametrize("path", ["expert", "automated", "mmsdnet"])
@@ -273,7 +315,13 @@ def test_data_parallel_steps_match_one_process(path, tmp_path):
     """Two steps (MMSDNet: two batches of a generator and a discriminator
     step) on 2 ranks, each with half of every batch and drawing the global
     noise from its own generator, against one process on the whole
-    batches from the same weights."""
+    batches, a step at a time from the train state the ranks started it
+    from. Two runs that are not bit for bit the same part after an update:
+    an lr-sized Adam step at an entry near gradient 0 moves the next
+    forward by ~lr, which can move a ReLU across its kink and so other
+    entries' next gradients by percents (one draw of the automated pairs
+    in 57 did: 325 entries of a segmentor conv moved by up to 0.99 lr
+    after two steps from the same weights)."""
     conf = tconfig.tiny_test_config("mmsdnet" if path == "mmsdnet" else "dafnet")
     conf.automatedpairing = path == "automated"
     from multimodal_segmentation_torch.models import build_model
@@ -283,9 +331,16 @@ def test_data_parallel_steps_match_one_process(path, tmp_path):
     batches = _training_batches(conf, 2)
     ranks = torch_dist.Ranks(torch_dist.train_steps, 2, tmp_path, 2, conf, sd, batches,
                              [None, None])
-    ref = torch_dist.train_steps(None, 1, conf, sd, batches, [None, None])
-    for got in ranks.join():
-        _assert_dp_matches(got, ref, model, 2)
+    refs = [torch_dist.train_steps(None, 1, conf, sd, batches[:1], [None])]
+    res = ranks.join()
+    assert _same(res[0]["states"][0], res[1]["states"][0])
+    refs.append(torch_dist.train_steps(None, 1, conf, None, batches[1:], [None],
+                                       start=res[0]["states"][0]))
+    for i, ref in enumerate(refs):
+        for got in res:
+            _assert_dp_matches({"step": got["states"][i]["step"],
+                                "metrics": got["metrics"][i:i + 1],
+                                "state": got["states"][i]["model"]}, ref, model, 1, ref["grads"])
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ not the default (32x32, C = 4, offsets sigma 0.03, interpret mode).
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -132,3 +133,79 @@ def test_cuda_route_refuses_more_than_32_control_points():
         tps.tps_warp(on_card, torch.zeros(1, 36, 2), (6, 6))
     got = tps.tps_warp(torch.rand(1, 8, 8, 1), torch.zeros(1, 36, 2), (6, 6))
     assert got.shape == (1, 8, 8, 1)
+
+
+# ---------------------------------------- the general entry's float64 log
+
+KERNEL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "multimodal_segmentation_torch", "csrc", "tps_warp.cu")
+LOG_BITS = 7                      # kLogBits: 2^7 bins of the mantissa
+LN2 = 0.6931471805599453          # kLn2
+TAYLOR = (-1.0 / 6.0, 0.2, -0.25, 1.0 / 3.0, -0.5)   # Horner, degree 6 down to 2
+
+
+def _two_prod(a, b):
+    """a * b as p + e exactly (Dekker's product)."""
+    def split(x):
+        t = 134217729.0 * x
+        hi = t - (t - x)
+        return hi, x - hi
+    p = a * b
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _fma(a, b, c):
+    """fma(a, b, c) from the exact product: p + c with its error, then the
+    product's error; exact where p + c is (the reduction's fma(m, 1/c_j,
+    -1): p is within 2^-7 of 1), else within an ulp of one rounding."""
+    p, e = _two_prod(a, b)
+    s = p + c
+    bb = s - p
+    return s + (((p - (s - bb)) + (c - bb)) + e)
+
+
+def _log_model(x):
+    """numpy model of csrc/tps_warp.cu::log_reduced on float64 x > 0
+    (normal): the same table (2^LOG_BITS bins, c_j = 1 + (j + 0.5) /
+    2^LOG_BITS, entries 1/c_j and -log(1/c_j)), the same bit operations and
+    the same float64 operations in the same order, fma included."""
+    bits = x.view(np.uint64)
+    hi = (bits >> np.uint64(32)).astype(np.int64)
+    j = (hi >> (20 - LOG_BITS)) & ((1 << LOG_BITS) - 1)
+    inv = 1.0 / (1.0 + (np.arange(1 << LOG_BITS) + 0.5) / (1 << LOG_BITS))
+    t_inv, t_log = inv[j], -np.log(inv)[j]
+    m = ((bits & np.uint64(0x000FFFFFFFFFFFFF)) | np.uint64(0x3FF0000000000000)).view(np.float64)
+    k = ((np.uint64(0x43300000) << np.uint64(32)) | (hi >> 20).astype(np.uint64)).view(
+        np.float64) - 4503599627371519.0
+    r = _fma(m, t_inv, -1.0)
+    p = _fma(r, TAYLOR[0], TAYLOR[1])
+    for c in TAYLOR[2:]:
+        p = _fma(r, p, c)
+    p = _fma(r * r, p, r)
+    return _fma(k, LN2, t_log + p), r
+
+
+def test_reduced_range_log_matches_numpy():
+    """The float64 log of B1's general entry (csrc/tps_warp.cu::
+    log_reduced, constants kLogBits, kLn2 and the degree-6 Taylor
+    polynomial, which this model mirrors and reads back from the source)
+    against np.log on 10^6 log-spaced points in [1e-10, 8] (the clamped
+    squared distances it takes) and on every table bin's edges, each with
+    its neighbours an ulp away: within 1e-14 absolute (3 ulps of log 1e-10;
+    the model is within 3.6e-15, and 5 bits of table would miss by
+    3.2e-14), with |r| <= 2^-8."""
+    src = open(KERNEL_SOURCE).read()
+    assert "constexpr int kLogBits = %d;" % LOG_BITS in src
+    assert "constexpr double kLn2 = %r;" % LN2 in src
+    assert "fma(r, -1.0 / 6.0, 0.2)" in src and "fma(r * r, p, r)" in src
+    edges = np.array([2.0 ** e * (1 + j / 2 ** LOG_BITS) for e in range(-34, 4)
+                      for j in range(2 ** LOG_BITS + 1)])
+    edges = np.concatenate([edges, np.nextafter(edges, 0), np.nextafter(edges, np.inf)])
+    x = np.concatenate([np.logspace(-10, np.log10(8.0), 10 ** 6),
+                        edges[(edges >= 1e-10) & (edges <= 8.0)]])
+    got, r = _log_model(x)
+    assert np.abs(r).max() <= 2.0 ** -8
+    gap = np.abs(got - np.log(x)).max()
+    assert gap <= 1e-14, "largest gap %.3g" % gap

@@ -12,9 +12,11 @@ raise, and the other ranks are stopped.
 """
 
 import contextlib
+import copy
 import datetime
 import os
 import socket
+import tempfile
 import time
 
 import numpy as np
@@ -241,22 +243,39 @@ def norm_and_bce(mesh, x, y_true, y_pred, probe):
             "running_var": bn.running_var.clone(), "eval_out": bn(x.double()).detach()}
 
 
-def train_steps(rank, n, conf, state_dict, batches, noises, mesh_size=None):
-    """A 2-D model from `state_dict` trained on `batches` (global arrays;
-    one step or, for MMSDNet, a generator and a discriminator step each),
-    alone (rank None) or on a 'data' mesh of n ranks: each batch's
-    metrics, and the state_dict and Adam state after them. `noises[i]`
-    is the i-th step's global noise, or None (the step draws it)."""
+def train_steps(rank, n, conf, state_dict, batches, noises, mesh_size=None, start=None):
+    """A 2-D model from `state_dict` and a new train state or, given
+    `start`, from that train state (CheckpointManager.state_of of an
+    earlier run's), trained on `batches` (global arrays; one step or, for
+    MMSDNet, a generator and a discriminator step each), alone (rank None)
+    or on a 'data' mesh of n ranks: each batch's metrics, the state_dict
+    and the step after them, and `states`: state_of the train state after
+    each batch. `noises[i]` is the i-th step's global noise, or None (the
+    step draws it). Alone, also `grads`: {parameter name: the gradient of
+    every Adam step that updated it, in order}."""
     from multimodal_segmentation_torch.models import build_model
     from multimodal_segmentation_torch.parallel import make_mesh, shard_batch
     from multimodal_segmentation_torch.train import create_train_state, make_steps
+    from multimodal_segmentation_torch.utils.checkpoint import CheckpointManager
 
     model = build_model(conf, device="cpu")
-    model.load_state_dict(state_dict)
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
     mesh = None if rank is None else make_mesh(n)
     steps = make_steps(model, conf, mesh)
     ts = create_train_state(model, conf)
-    metrics = []
+    if start is not None:
+        with tempfile.TemporaryDirectory() as folder:
+            manager = CheckpointManager(folder)
+            manager.save(0, ts, start)
+            manager.restore(0, ts)
+    grads = {}
+    if rank is None:
+        names = {id(p): k for k, p in model.named_parameters()}
+        for opt in (ts.opt_gen, ts.opt_zreg, *ts.opt_disc.values()):
+            if opt is not None:
+                _record_grads(opt, names, grads)
+    metrics, states = [], []
     for batch, noise in zip(batches, noises):
         if mesh is not None:
             batch = shard_batch(mesh, batch, "cpu")
@@ -267,8 +286,25 @@ def train_steps(rank, n, conf, state_dict, batches, noises, mesh_size=None):
         else:
             ts, m = steps.step_supervised(ts, batch, noise)
         metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "state": {k: v.clone() for k, v in model.state_dict().items()},
-            "step": ts.step}
+        states.append(copy.deepcopy(CheckpointManager.state_of(ts)))
+    out = {"metrics": metrics, "state": {k: v.clone() for k, v in model.state_dict().items()},
+           "states": states, "step": ts.step}
+    if rank is None:
+        out["grads"] = grads
+    return out
+
+
+def _record_grads(opt, names, grads):
+    """Make opt.step append each parameter's gradient to grads[name]
+    before it updates."""
+    step = opt.step
+
+    def recording(*a, **k):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                grads.setdefault(names[id(p)], []).append(p.grad.detach().clone())
+        return step(*a, **k)
+    opt.step = recording
 
 
 def run_executor(rank, n, conf, counting=True):
