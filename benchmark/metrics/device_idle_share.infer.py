@@ -1,0 +1,8 @@
+"""device_idle_share.infer: % of the traced window in which nothing ran on
+the device."""
+
+from benchmark.harness.readers import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
