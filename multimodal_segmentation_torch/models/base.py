@@ -2,12 +2,14 @@
 fake-pool select (multimodal_segmentation_tpu/models/base.py:122-167), the
 device rule of the entry points, the `predict_mask` fusion API of both
 models (models/dafnet.py:657-685, models/mmsdnet.py:334-351) and their
-placement on a data-parallel mesh (`set_mesh`).
+placement on a data-parallel mesh (`set_mesh`). `predict_mask` records
+its spans (utils/tracing.py) while a torch.profiler session runs.
 """
 
 import torch
 
 from multimodal_segmentation_torch.nn.blocks import BatchNorm
+from multimodal_segmentation_torch.utils import tracing
 
 
 def add_residual(masks):
@@ -98,16 +100,22 @@ class MaskPredictor:
         w_dev = next(self.parameters()).device
         if w_dev != dev:
             raise ValueError("the model's weights are on %s, not on %s" % (w_dev, dev))
-        x = [torch.as_tensor(im, dtype=torch.float32, device=dev).permute(0, 3, 1, 2)
-             for im in images]
-        # s2: the modality to segment, s1: the other one
-        anatomies = self.encode_anatomies(x[0], x[1])
-        s1, s2 = anatomies[1 - modality_index], anatomies[modality_index]
-        if fusion_type == "simple":
-            s = s2
-        elif fusion_type == "maxnostn":
-            s = torch.maximum(s1, s2)
-        else:
-            s_def, s_fused = self.fuser(s1, s2, fast=True)
-            s = s_def if fusion_type == "def" else s_fused
-        return self.segmentor(s).permute(0, 2, 3, 1)
+        with tracing.span("predict_mask", slices=int(images[0].shape[0]), fusion=fusion_type):
+            with tracing.span("predict.inputs"):
+                x = [torch.as_tensor(im, dtype=torch.float32, device=dev).permute(0, 3, 1, 2)
+                     for im in images]
+            with tracing.span("predict.encode"):
+                anatomies = self.encode_anatomies(x[0], x[1])
+            # s2: the modality to segment, s1: the other one
+            s1, s2 = anatomies[1 - modality_index], anatomies[modality_index]
+            if fusion_type == "simple":
+                s = s2
+            else:
+                with tracing.span("predict.fuse"):
+                    if fusion_type == "maxnostn":
+                        s = torch.maximum(s1, s2)
+                    else:
+                        s_def, s_fused = self.fuser(s1, s2, fast=True)
+                        s = s_def if fusion_type == "def" else s_fused
+            with tracing.span("predict.segment"):
+                return self.segmentor(s).permute(0, 2, 3, 1)

@@ -9,6 +9,7 @@ Without a CUDA device every test here skips."""
 import dataclasses
 import os
 import shutil
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +32,7 @@ from multimodal_segmentation_torch.train import (
     draw_noise,
     make_steps,
 )
+from multimodal_segmentation_torch.utils import tracing
 from torch_warp_reference import offsets_gradient_reference
 
 pytestmark = pytest.mark.gpu
@@ -1193,3 +1195,45 @@ def test_tensor_parallel_step_matches_one_process(cuda, tmp_path):
         for k, v in ref["metrics"].items():
             if not k.startswith("dis_"):
                 assert got["metrics"][k] == v, k
+
+
+def test_program_spans_on_the_device_traces_clock(cuda):
+    """Under a CUDA-only profiler, as the benchmark's window: the spans
+    record, the trace holds the CUDA runtime calls, a kernel launched in a
+    span has its runtime call inside it, and the device's idle gap made by
+    a 5 ms host sleep between two kernels lies in the span that slept,
+    its middle within 100 us of the sleep's."""
+    from benchmark.harness.trace import Trace, profiler
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    tracing.clear()
+    prof = profiler()
+    prof.start()
+    try:
+        assert torch.autograd.profiler._is_profiler_enabled
+        with tracing.span("launch"):
+            torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+        with tracing.span("gap"):
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            slept = time.time_ns()
+            time.sleep(0.005)
+            slept = (slept + time.time_ns()) // 2
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    trace = Trace(prof, 1.0)
+    assert trace.runtime
+    spans = {s.name: s for s in tracing.spans()}
+    assert set(spans) == {"launch", "gap"}
+    spins = [d for d in trace.device if "spin" in d[0]]
+    assert len(spins) == 3, [d[0] for d in trace.device]
+    call_at = {c: t for t, _, c in trace.runtime}
+    launch = spans["launch"]
+    assert launch.start_ns <= call_at[spins[0][3]] <= launch.end_ns
+    mid = (spins[1][2] + spins[2][1]) // 2
+    assert spans["gap"].start_ns <= mid <= spans["gap"].end_ns
+    assert abs(mid - slept) <= 100_000, (mid - slept) / 1e3
