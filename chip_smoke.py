@@ -23,7 +23,10 @@ Phases, one JSON line each:
                 window-edge and border locations, g contiguous and
                 channels-first; `rotation`: a training step's three
                 group rotations, kernel and whole random_rotate_batch
-                path, with wall times; round_ste; `launch_path`: host us
+                path, with wall times; round_ste; `bn_epilogue`: the
+                eval-mode conv epilogue at three bf16 shapes of serving,
+                bit for bit against the separate operations, with the
+                plain chain's device time too; `launch_path`: host us
                 of each part of a wrapper's launch; `flow`: tps_flow_dbg
                 at the tool's shape and at B1's, the stages check of B1
                 against a plain blend at its locations, the gap to
@@ -1183,6 +1186,61 @@ def round_ste_phase(torch, dev):
     return res
 
 
+def bn_epilogue_phase(torch, dev):
+    """The eval-mode conv epilogue (csrc/bn_epilogue.cu) against its plain
+    version (the separate operations), bit for bit, in bf16 at three shapes
+    of a 38-slice study's serving path: the shared up path's last level
+    (76, 64, 192, 192), a middle one (76, 512, 24, 24) and the bottleneck
+    (76, 1024, 12, 12), ReLU on; timed there, contiguous NCHW and
+    channels_last (the layout cuDNN hands the segmentor and the encoders'
+    first level in serving). Its bound: c read once and the output written
+    once."""
+    from multimodal_segmentation_torch.nn.blocks import BatchNorm
+    from multimodal_segmentation_torch.ops.cuda_kernels import bn_epilogue
+    from multimodal_segmentation_torch.ops.epilogue import bn_epilogue_plain
+
+    res = {}
+    g = torch.Generator().manual_seed(7)
+    for shape in ((76, 64, 192, 192), (76, 512, 24, 24), (76, 1024, 12, 12)):
+        C = shape[1]
+        norm = BatchNorm(C).eval()
+        with torch.no_grad():
+            norm.running_mean.copy_(torch.randn(C, generator=g) * 0.5)
+            norm.running_var.copy_(torch.rand(C, generator=g) * 2.0 + 1e-3)
+            norm.weight.copy_(torch.rand(C, generator=g) + 0.5)
+            norm.bias.copy_(torch.randn(C, generator=g) * 0.3)
+        norm = norm.to(dev)
+        cbias = (torch.randn(C, generator=g) * 0.3).to(dev)
+        args = (cbias, norm.running_mean, norm.running_var, norm.weight, norm.bias, norm.eps,
+                True)
+        for layout in (torch.contiguous_format, torch.channels_last):
+            c = (torch.randn(shape, device=dev) * 3.0).to(torch.bfloat16).contiguous(
+                memory_format=layout)
+            with torch.no_grad():
+                got, ref = bn_epilogue(c, *args), bn_epilogue_plain(c, *args)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), "bn_epilogue %s %s differs from the plain chain"
+                      % (shape, layout))
+                err = (got.float() - ref.float()).abs().max().item()
+                del got, ref
+                nbytes = c.numel() * c.element_size()
+                bufs = rotating(lambda: c.clone(), nbytes)
+                row = measure(bufs, lambda b: bn_epilogue(b, *args),
+                              lambda b: bn_epilogue_plain(b, *args), None, 2 * nbytes,
+                              5 * c.numel())
+                it = itertools.cycle(bufs)
+                row["plain_device_ms"] = device_ms(lambda: bn_epilogue_plain(next(it), *args),
+                                                   iters=10)
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            key = "x".join(map(str, shape)) + "_bfloat16"
+            if layout == torch.channels_last:
+                key += "_channels_last"
+            res[key] = {"shape": list(shape), "max_abs_err": err, "bit_exact": True, **row}
+            del bufs, c
+            torch.cuda.empty_cache()
+    return res
+
+
 def launch_path_phase(torch, dev):
     """Host us a call of each part of a wrapper's launch path, on
     round_ste at the training shape (12, 8, 192, 192) f32: the
@@ -1444,6 +1502,9 @@ def slice_phase(torch, conf, device, reference=None):
               % (launches["tps_warp_fwd"], calls))
         check(launches["round_ste"] == sum(len(v) for v in times.values()),
               "round_ste launches %d != predict_mask calls" % launches["round_ste"])
+        want = epilogues(conf)["predict"] * sum(len(v) for v in times.values())
+        check(launches["bn_epilogue"] == want,
+              "bn_epilogue launches %d != %d" % (launches["bn_epilogue"], want))
     p50 = {k: 1e3 * sorted(v)[len(v) // 2] for k, v in times.items()}
     out = {
         "config": "dafnet_chaos" if conf.input_hw == (192, 192) else "tiny",
@@ -1506,21 +1567,46 @@ STEP_LAUNCHES = {
     "mmsdnet_gen": {"tps_warp_fwd": 2, "tps_warp_bwd": 1, "nearest_warp": 1, "round_ste": 4},
     "mmsdnet_disc": {"tps_warp_fwd": 1, "tps_warp_bwd": 0, "nearest_warp": 2, "round_ste": 2},
 }
-KERNEL_NAMES = ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste", "tps_flow_dbg")
+KERNEL_NAMES = ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste", "tps_flow_dbg",
+                "bn_epilogue")
 
 
-def launches_of(calls):
-    """{kernel: launches} of {step kind: calls}, by STEP_LAUNCHES."""
-    return {k: sum(n * STEP_LAUNCHES[kind].get(k, 0) for kind, n in calls.items())
-            for k in KERNEL_NAMES}
+def epilogues(conf):
+    """Conv epilogue launches (bn_epilogue) of each kind of call at conf's
+    UNet depth d: one a BatchNorm'd convolution run in eval mode on the
+    card, none in train mode. A single-path encoder has 5d + 2 (2d down, 2
+    in the bottleneck, 3d up), DAFNet's dual encoder 7d + 2 (two private
+    down paths), the segmentor 2. A DAFNet step: the fake pools' dual
+    encoder and segmentor; an MMSDNet generator step: the Z-regressor's two
+    encoders; its discriminator step: the pool's two encoders and the
+    segmentor; predict_mask: the anatomies and the segmentor; an image
+    callback epoch: the anatomies; the balancer's validation: n_pairs + 1
+    single-path encodes. At dafnet_chaos's d = 4: 32 a step and a
+    predict_mask."""
+    d = conf.anatomy_encoder.downsample
+    single, dual, seg = 5 * d + 2, 7 * d + 2, 2
+    anatomies = 2 * single if conf.model == "mmsdnet" else dual
+    return {"dafnet_step": dual + seg, "mmsdnet_gen": 2 * single, "mmsdnet_disc": 2 * single + seg,
+            "predict": anatomies + seg, "image_epoch": anatomies,
+            "balancer_validation": (conf.n_pairs + 1) * single}
+
+
+def launches_of(calls, conf):
+    """{kernel: launches} of {step kind: calls}, by STEP_LAUNCHES and
+    epilogues(conf)."""
+    out = {k: sum(n * STEP_LAUNCHES[kind].get(k, 0) for kind, n in calls.items())
+           for k in KERNEL_NAMES}
+    out["bn_epilogue"] = sum(n * epilogues(conf)[kind] for kind, n in calls.items())
+    return out
 
 
 def launches_per_batch(conf):
     """Kernel launches of one train_phase batch on the card: a DAFNet step
-    (2/1/3/2), or MMSDNet's generator and discriminator steps (3/1/3/6)."""
+    (2/1/3/2, 32 epilogues at full width), or MMSDNet's generator and
+    discriminator steps (3/1/3/6, 90)."""
     if conf.model == "mmsdnet":
-        return launches_of({"mmsdnet_gen": 1, "mmsdnet_disc": 1})
-    return launches_of({"dafnet_step": 1})
+        return launches_of({"mmsdnet_gen": 1, "mmsdnet_disc": 1}, conf)
+    return launches_of({"dafnet_step": 1}, conf)
 
 
 def _train_setup(torch, conf, device):
@@ -1716,7 +1802,8 @@ def lockstep_phase(torch, device):
     if device == "cuda":
         n = 2 * LOCKSTEP_STEPS
         want = {"tps_warp_fwd": 2 * n, "tps_warp_bwd": n, "nearest_warp": 3 * n,
-                "round_ste": 2 * n, "tps_flow_dbg": 0}
+                "round_ste": 2 * n, "tps_flow_dbg": 0,
+                "bn_epilogue": n * epilogues(config.tiny_test_config("dafnet"))["dafnet_step"]}
         check(launches == want, "lockstep launches %s != %s" % (launches, want))
     return {"config": "tiny", "device": str(device), "steps": LOCKSTEP_STEPS, "seconds": seconds,
             "max_rel_divergence": float(rel.max()), "mean_rel_divergence": float(rel.mean()),
@@ -1768,11 +1855,14 @@ class _Counted:
         """The kernel launches those calls, and the image callback's
         anatomy encodes in `image_epochs` epochs, make on the card."""
         n = self.n
-        out = launches_of({k: n[k] for k in STEP_LAUNCHES})
+        out = launches_of({k: n[k] for k in STEP_LAUNCHES}, conf)
         heads = 2 if conf.model == "mmsdnet" else 1
         out["tps_warp_fwd"] += n["warped"]
         out["round_ste"] += (heads * (n["predict"] + image_epochs)
                              + (conf.n_pairs + 1) * n["balancer_validation"])
+        ep = epilogues(conf)
+        out["bn_epilogue"] += (ep["predict"] * n["predict"] + ep["image_epoch"] * image_epochs
+                               + ep["balancer_validation"] * n["balancer_validation"])
         return out
 
 
@@ -3488,6 +3578,7 @@ def main(argv=None):
         "rotation": rotation_phase(torch, dev),
         "rotation_auto": rotation_auto_phase(torch, dev),
         "round_ste": round_ste_phase(torch, dev),
+        "bn_epilogue": bn_epilogue_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
         "flow": flow_phase(torch, dev),
         "nearest_warp_3d": nearest_warp_3d_phase(torch, dev),
@@ -3617,6 +3708,8 @@ def main(argv=None):
                          "(32, 128, 128, 3) float32 masks": kern["nearest_warp_3d"]["masks"]},
         "round_ste": {"(36, 8, 192, 192) float32": kern["round_ste"]["train_auto_float32"]},
         "tps_flow_dbg": {},
+        "bn_epilogue": {key: row for key, row in kern["bn_epilogue"].items()
+                        if key != "76x64x192x192_bfloat16"},
     }
     summary = []
     for name, source, replaces, k, work in (
@@ -3631,7 +3724,10 @@ def main(argv=None):
              "(12, 8, 192, 192) float32: the anatomy of one training step's loss"),
             ("tps_flow_dbg", "tps_flow_dbg.cu", "tools/debug_warp_kernel.py:60",
              kern["flow"]["B=24"], "B=24 192x192 float32, 5 values a point: B1's flow "
-             "stage at its inference shape")):
+             "stage at its inference shape"),
+            ("bn_epilogue", "bn_epilogue.cu", "none: XLA fuses the chain in the JAX package",
+             kern["bn_epilogue"]["76x64x192x192_bfloat16"], "(76, 64, 192, 192) bfloat16, "
+             "ReLU on: the up path's last level of a 38-slice study in serving")):
         summary.append({
             "name": name,
             "route": "cuda",

@@ -2,15 +2,16 @@
 // registered with TORCH_LIBRARY for the CUDA dispatch key.
 //
 // Each kernel source (tps_warp.cu, tps_warp_bwd.cu, nearest_warp.cu,
-// round_ste.cu, tps_flow_dbg.cu) keeps a plain C entry point; this file checks the tensors,
-// allocates the outputs with the caching allocator and calls the entry
-// point, in one call from Python. The checks raise ValueError
-// (TORCH_CHECK_VALUE); a launch error raises RuntimeError. The stream is the
-// raw handle of the caller's current stream on the tensors' device, passed
-// in as an int, so this file needs no CUDA header; the caller
-// (ops/cuda_kernels.py) makes that device current. Built by
-// ops/cuda_kernels.py with g++ against torch's headers and linked with the
-// kernels' objects into one library, loaded with torch.ops.load_library.
+// round_ste.cu, tps_flow_dbg.cu, bn_epilogue.cu) keeps a plain C entry
+// point; this file checks the tensors, allocates the outputs with the
+// caching allocator and calls the entry point, in one call from Python.
+// The checks raise ValueError (TORCH_CHECK_VALUE); a launch error raises
+// RuntimeError. The stream is the raw handle of the caller's current
+// stream on the tensors' device, passed in as an int, so this file needs
+// no CUDA header; the caller (ops/cuda_kernels.py) makes that device
+// current. Built by ops/cuda_kernels.py with g++ against torch's headers
+// and linked with the kernels' objects into one library, loaded with
+// torch.ops.load_library.
 
 #include <ATen/core/Tensor.h>
 #include <ATen/ops/empty.h>
@@ -41,6 +42,9 @@ int rotate_group(int n, const void* src0, const void* src1, const void* src2,
 int round_ste(const void* x, void* y, long long n, int elem_bytes, void* stream);
 int tps_flow_dbg(const void* wv, const void* cp, void* out, int B, int H, int W, int n_cp,
                  void* stream);
+int bn_epilogue(const void* c, void* y, long long n, int inner, int C, const void* cbias,
+                const void* mean, const void* var, const void* weight, const void* beta,
+                float eps, int relu, int elem_bytes, void* stream);
 }
 
 namespace {
@@ -247,6 +251,41 @@ at::Tensor op_tps_flow_dbg(const at::Tensor& wv, const at::Tensor& cp, int64_t H
   return out;
 }
 
+// (N, C, H, W) float32/bfloat16, contiguous NCHW or channels_last; the
+// output in c's dtype and layout. cbias, mean, var, weight, beta: (C,)
+// float32 on c's device.
+at::Tensor op_bn_epilogue(const at::Tensor& c, const at::Tensor& cbias,
+                          const at::Tensor& mean, const at::Tensor& var,
+                          const at::Tensor& weight, const at::Tensor& beta, double eps,
+                          bool relu, int64_t stream) {
+  const char* name = "bn_epilogue";
+  TORCH_CHECK_VALUE(c.is_cuda(), name, ": c must be a CUDA tensor, got ", c.device());
+  TORCH_CHECK_VALUE(float_type(c), name, ": c must be float32 or bfloat16, got ",
+                    c.scalar_type());
+  TORCH_CHECK_VALUE(c.dim() == 4 && c.numel() > 0, name,
+                    ": c must be a non-empty (N, C, H, W), got ", c.sizes());
+  const int64_t C = c.size(1), HW = c.size(2) * c.size(3);
+  const bool nchw = c.is_contiguous();
+  TORCH_CHECK_VALUE(nchw || c.is_contiguous(at::MemoryFormat::ChannelsLast), name,
+                    ": c must be contiguous NCHW or channels_last, got strides ", c.strides());
+  // the channel of memory offset e is (e / inner) % C
+  const int64_t inner = nchw ? HW : 1;
+  TORCH_CHECK_VALUE(C <= INT32_MAX && HW <= (int64_t(1) << 30), name, ": unsupported c shape ",
+                    c.sizes());
+  check_f32(cbias, name, "conv bias", {C}, c);
+  check_f32(mean, name, "mean", {C}, c);
+  check_f32(var, name, "var", {C}, c);
+  check_f32(weight, name, "weight", {C}, c);
+  check_f32(beta, name, "beta", {C}, c);
+  at::Tensor out = at::empty_like(c);
+  launched(bn_epilogue(c.data_ptr(), out.data_ptr(), c.numel(), i32(inner), i32(C),
+                       cbias.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                       weight.data_ptr(), beta.data_ptr(), static_cast<float>(eps), relu,
+                       i32(c.element_size()), stream_of(stream)),
+           name);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(mmseg_cuda, m) {
@@ -259,6 +298,9 @@ TORCH_LIBRARY(mmseg_cuda, m) {
   m.def("rotate_group(Tensor[] arrays, Tensor cos_t, Tensor sin_t, int stream) -> Tensor[]");
   m.def("round_ste(Tensor x, int stream) -> Tensor");
   m.def("tps_flow_dbg(Tensor wv, Tensor cp, int H, int W, int stream) -> Tensor");
+  m.def(
+      "bn_epilogue(Tensor c, Tensor cbias, Tensor mean, Tensor var, Tensor weight, "
+      "Tensor beta, float eps, bool relu, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
@@ -269,4 +311,5 @@ TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
   m.impl("rotate_group", &op_rotate_group);
   m.impl("round_ste", &op_round_ste);
   m.impl("tps_flow_dbg", &op_tps_flow_dbg);
+  m.impl("bn_epilogue", &op_bn_epilogue);
 }

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from multimodal_segmentation_torch.ops.epilogue import bn_epilogue
 from multimodal_segmentation_torch.parallel.collectives import mean_over, whole_weight
 
 # std of a unit normal truncated to [-2, 2]: Flax's variance_scaling
@@ -58,8 +59,8 @@ class Conv2d(nn.Conv2d):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
-    def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+    def forward(self, x, with_bias=True):
+        bias = None if self.bias is None or not with_bias else self.bias.to(x.dtype)
         return F.conv2d(x, whole_weight(self.weight).to(x.dtype), bias,
                         stride=self.stride, padding=self.padding)
 
@@ -228,6 +229,34 @@ class InstanceNorm(nn.Module):
         return y
 
 
+def _on_card(x):
+    """Whether x is on the GPU, where conv_norm's kernel runs (a test
+    substitutes this to exercise the decision on the CPU)."""
+    return x.is_cuda
+
+
+def conv_norm(conv, norm, x, groups=1, relu=True):
+    """relu?(norm(conv(x), groups)): a Conv2d with a bias, its norm and an
+    optional ReLU.
+
+    On the GPU a BatchNorm in eval mode runs with its convolution's bias
+    and the ReLU as one pass over the bias-free convolution's output: the
+    eval-mode conv epilogue (ops/epilogue.py::bn_epilogue), which rounds
+    as the separate operations do, so the output is the same bit for bit,
+    and which has a backward. Every other case runs the operations one by
+    one: train mode (batch statistics are a reduction, not an affine),
+    InstanceNorm or no norm, and the CPU. The device and the mode decide;
+    no flag does. The epilogue calls neither the norm nor F.relu, so a
+    forward hook on the norm (the debug_nans guard's) does not run there:
+    the next module's hook (the next convolution's or the enclosing
+    block's) sees the result."""
+    if _on_card(x) and isinstance(norm, BatchNorm) and not norm.training:
+        return bn_epilogue(conv(x, with_bias=False), conv.bias, norm.running_mean,
+                           norm.running_var, norm.weight, norm.bias, norm.eps, relu)
+    y = norm(conv(x), groups)
+    return F.relu(y) if relu else y
+
+
 class _NoNorm(nn.Module):
     """normalise='none': the input as it is."""
 
@@ -269,8 +298,8 @@ class ConvBlock(nn.Module):
         self.Norm_1 = _norm(norm, filters)
 
     def _body(self, x, groups):
-        x = F.relu(self.Norm_0(self.Conv_0(x), groups))
-        return F.relu(self.Norm_1(self.Conv_1(x), groups))
+        x = conv_norm(self.Conv_0, self.Norm_0, x, groups)
+        return conv_norm(self.Conv_1, self.Norm_1, x, groups)
 
     def forward(self, x, groups=1):
         if self.remat and self.training:
@@ -295,7 +324,7 @@ class UpsampleBlock(nn.Module):
         self.Norm_0 = _norm(norm, filters)
 
     def _body(self, x, groups):
-        return self.Norm_0(self.Conv_0(upsample2x(x)), groups)
+        return conv_norm(self.Conv_0, self.Norm_0, upsample2x(x), groups, relu=False)
 
     def forward(self, x, groups=1):
         if self.remat and self.training:

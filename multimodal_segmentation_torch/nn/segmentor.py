@@ -5,10 +5,9 @@ model_components/segmentor.py:9-29). NCHW tensors.
 """
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from multimodal_segmentation_torch.nn.blocks import BatchNorm, Conv2d, remat
+from multimodal_segmentation_torch.nn.blocks import BatchNorm, Conv2d, conv_norm, remat
 
 
 class Segmentor(nn.Module):
@@ -33,7 +32,7 @@ class Segmentor(nn.Module):
         return self._body(s, groups)
 
     def _body(self, s, groups):
-        x = F.relu(self.BatchNorm_0(self.Conv_0(s.to(self.dtype)), groups))
-        x = F.relu(self.BatchNorm_1(self.Conv_1(x), groups))
+        x = conv_norm(self.Conv_0, self.BatchNorm_0, s.to(self.dtype), groups)
+        x = conv_norm(self.Conv_1, self.BatchNorm_1, x, groups)
         # softmax in f32: mask probabilities feed Dice
         return torch.softmax(self.Conv_2(x).float(), dim=1)

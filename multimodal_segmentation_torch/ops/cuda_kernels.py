@@ -26,9 +26,9 @@ current stream without synchronising and adds one to its kernel's
 `launches` count. Nothing is built or loaded when this module is
 imported, so it imports on a machine without CUDA.
 
-The wrappers take CUDA tensors only; the callers in ops/ (tps.py,
-augment.py, rounding.py) run the plain PyTorch versions for tensors on the
-CPU.
+The wrappers take CUDA tensors only; their callers (ops/tps.py,
+ops/augment.py, ops/rounding.py, nn/blocks.py::conv_norm) run the plain
+PyTorch versions for tensors on the CPU.
 """
 
 import os
@@ -85,7 +85,8 @@ TPS_WARP_BWD = Kernel("tps_warp_bwd", "tps_warp_bwd.cu", ("tps_warp_bwd",))
 NEAREST_WARP = Kernel("nearest_warp", "nearest_warp.cu", ("nearest_warp", "rotate_group"))
 ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
 TPS_FLOW_DBG = Kernel("tps_flow_dbg", "tps_flow_dbg.cu", ("tps_flow_dbg",))
-KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG)
+BN_EPILOGUE = Kernel("bn_epilogue", "bn_epilogue.cu", ("bn_epilogue",))
+KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG, BN_EPILOGUE)
 _lock = threading.Lock()
 
 
@@ -361,3 +362,29 @@ def tps_flow_dbg(wv, cp, vol_shape):
     _cuda(wv, "tps_flow_dbg", "wv")
     H, W = vol_shape
     return _launch(TPS_FLOW_DBG, "tps_flow_dbg", wv, wv, cp, int(H), int(W))
+
+
+def bn_epilogue(c, conv_bias, mean, var, weight, beta, eps, relu):
+    """The eval-mode conv epilogue on the GPU (csrc/bn_epilogue.cu): a
+    bias-free convolution's output, plus the conv bias, normalised by a
+    BatchNorm's running statistics and affine, then ReLU if `relu`, in one
+    pass, rounded to c's dtype after each step as the separate PyTorch
+    operations round (its plain version: ops/epilogue.py::
+    bn_epilogue_plain). Replaces no TPU kernel. Memory-bound: c read once,
+    the output written once (2 x 358.6 MB at (76, 64, 192, 192) bf16).
+
+    Args:
+      c: (N, C, H, W) CUDA tensor, float32 or bfloat16, contiguous NCHW or
+        channels_last.
+      conv_bias: (C,) contiguous float32: the convolution's bias.
+      mean, var, weight, beta: (C,) contiguous float32: the BatchNorm's
+        running mean and variance, scale and bias.
+      eps: the BatchNorm's epsilon.
+      relu: whether ReLU follows.
+
+    Returns:
+      (N, C, H, W) in c's dtype and layout.
+    """
+    _cuda(c, "bn_epilogue", "c")
+    return _launch(BN_EPILOGUE, "bn_epilogue", c, c, conv_bias, mean, var, weight, beta,
+                   float(eps), bool(relu))

@@ -8,7 +8,10 @@ every module of the model: the first module whose output holds a NaN or
 an infinity raises FloatingPointError, in training, validation and test
 alike. The steps check their metrics and the tester its predictions the
 same way. Each check waits for the device: the guard is for debugging,
-and no preset sets it.
+and no preset sets it. On the GPU an eval-mode BatchNorm, its
+convolution's bias and its ReLU run as one kernel that calls no norm
+module (nn/blocks.py::conv_norm), so a NaN made there is named by the
+next module's hook: the next convolution or the enclosing block.
 """
 
 import numpy as np

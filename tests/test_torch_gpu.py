@@ -14,6 +14,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from multimodal_segmentation_torch.config import (
     cardiac_3d,
@@ -22,7 +23,8 @@ from multimodal_segmentation_torch.config import (
     tiny_test_config,
 )
 from multimodal_segmentation_torch.models import build_model
-from multimodal_segmentation_torch.ops import augment, cuda_kernels, tps
+from multimodal_segmentation_torch.nn import blocks
+from multimodal_segmentation_torch.ops import augment, cuda_kernels, epilogue, tps
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
 from multimodal_segmentation_torch.train import (
     DAFNetSteps,
@@ -592,6 +594,174 @@ def test_round_ste_identity_gradient_on_cuda(cuda):
     assert torch.equal(x.grad, torch.full_like(x, 3.0))
 
 
+# ------------------------------------------------ the eval-mode conv epilogue
+
+# (C, H, W) of every BatchNorm'd convolution of the DAFNet encoders and
+# segmentor at dafnet_chaos width (the up path repeats the down path's)
+EPILOGUE_SHAPES = [(64, 192, 192), (128, 96, 96), (256, 48, 48), (512, 24, 24),
+                   (1024, 12, 12)]
+
+
+def _randomise_conv_norms_(module, seed):
+    """Conv biases and BatchNorm parameters and statistics away from their
+    initial zeros and ones, so every step of the epilogue rounds."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, blocks.Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.3)
+            if isinstance(m, blocks.BatchNorm):
+                c = m.weight.shape[0]
+                m.running_mean.copy_(torch.randn(c, generator=g) * 0.5)
+                m.running_var.copy_(torch.rand(c, generator=g) * 2.0 + 1e-3)
+                m.weight.copy_(torch.rand(c, generator=g) + 0.5)
+                m.bias.copy_(torch.randn(c, generator=g) * 0.3)
+    return module
+
+
+def _epilogue_case(c, relu, seed):
+    """(kernel, plain version, the module chain) on c for a seeded
+    BatchNorm and conv bias."""
+    C = c.shape[1]
+    conv = _randomise_conv_norms_(blocks.Conv2d(1, C, 1), seed).to(c.device)
+    norm = _randomise_conv_norms_(blocks.BatchNorm(C), seed + 1000).to(c.device).eval()
+    args = (conv.bias, norm.running_mean, norm.running_var, norm.weight, norm.bias, norm.eps,
+            relu)
+    got = cuda_kernels.bn_epilogue(c, *args)
+    plain = epilogue.bn_epilogue_plain(c, *args)
+    chain = norm(c + conv.bias.to(c.dtype).view(1, -1, 1, 1))
+    chain = F.relu(chain) if relu else chain
+    torch.cuda.synchronize()
+    return got, plain, chain
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_epilogue_kernel_bit_exact(cuda, dtype, relu, layout):
+    """The kernel against its plain version and the module chain (cuDNN's
+    bias add_, BatchNorm.forward in eval mode, F.relu), torch.equal: every
+    (C, H, W) of the DAFNet encoders and segmentor at batches 26 and 100,
+    then an odd H*W, a channel count that is no multiple of 8, a batch of
+    one, and an unaligned buffer (the scalar path)."""
+    cases = [(B, *chw) for chw in EPILOGUE_SHAPES for B in (26, 100)]
+    cases += [(7, 24, 13, 11), (3, 5, 9, 9), (1, 3, 4, 4)]
+    with torch.no_grad():
+        for i, (B, C, H, W) in enumerate(cases + [(5, 16, 6, 6)]):
+            n = B * C * H * W
+            flat = (torch.randn(n + 1, device=cuda) * 3.0).to(dtype)
+            unaligned = i == len(cases)
+            base = flat[1:] if unaligned else flat[:n]
+            if layout == "nchw":
+                c = base.view(B, C, H, W)
+            else:
+                c = base.view(B, H, W, C).permute(0, 3, 1, 2)
+                assert c.is_contiguous(memory_format=torch.channels_last)
+            got, plain, chain = _epilogue_case(c, relu, seed=i)
+            assert got.dtype == dtype and got.stride() == c.stride()
+            assert torch.equal(plain, chain), (B, C, H, W)
+            assert torch.equal(got, chain), (B, C, H, W, unaligned,
+                                             (got.float() - chain.float()).abs().max().item())
+
+
+def test_bn_epilogue_rejects_bad_inputs(cuda):
+    norm = blocks.BatchNorm(4).to(cuda)
+    args = (torch.zeros(4, device=cuda), norm.running_mean, norm.running_var, norm.weight,
+            norm.bias, norm.eps, True)
+    c = torch.zeros(2, 4, 3, 3, device=cuda)
+    for bad, match in ((c.half(), "float32 or bfloat16"), (c[:, :, :2], "contiguous NCHW"),
+                       (c[0], r"\(N, C, H, W\)")):
+        with pytest.raises(ValueError, match=match):
+            cuda_kernels.bn_epilogue(bad, *args)
+    with pytest.raises(ValueError, match="mean must be"):
+        cuda_kernels.bn_epilogue(c, args[0], norm.running_mean[:3], *args[2:])
+
+
+def _seeded_bf16_dafnet(seed=0):
+    conf = dafnet_chaos()
+    conf.compute_dtype = "bfloat16"
+    model = _randomise_conv_norms_(build_model(conf, device="cuda"), seed)
+    with torch.no_grad():
+        model.enc_anatomy.conv_anatomy.weight.mul_(5.0)
+        model.fuser.locnet.Dense_1.weight.normal_(
+            0.0, 1e-2, generator=torch.Generator("cuda").manual_seed(seed))
+    return model
+
+
+def test_predict_mask_through_the_epilogue_equals_the_plain_chain(cuda, monkeypatch):
+    """predict_mask(1, 'max') of a seeded bf16 dafnet_chaos model on a
+    26-slice study: the same tensor with the epilogue as with its plain
+    version in the kernel's place, and as with the blocks' op-by-op chain
+    (the convolutions' own bias; forced by taking the card out of
+    conv_norm's decision); exactly 32 epilogue launches a call: 30 in the
+    encoders, 2 in the segmentor."""
+    model = _seeded_bf16_dafnet()
+    r = np.random.RandomState(0)
+    x = [r.rand(26, 192, 192, 1).astype(np.float32) for _ in range(2)]
+    cuda_kernels.reset_launch_counts()
+    got = model.predict_mask(1, "max", x, device="cuda")
+    got2 = model.predict_mask(1, "max", x, device="cuda")
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 2 * 32
+    with monkeypatch.context() as m:
+        m.setattr(epilogue, "_bn_epilogue_cuda", epilogue.bn_epilogue_plain)
+        plain = model.predict_mask(1, "max", x, device="cuda")
+    monkeypatch.setattr(blocks, "_on_card", lambda t: False)
+    ref = model.predict_mask(1, "max", x, device="cuda")
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 2 * 32
+    assert torch.equal(got, got2)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_eval_mode_gradients_through_the_epilogue(cuda, monkeypatch, dtype):
+    """A full-width ConvBlock and UpsampleBlock in eval mode while autograd
+    records: the kernel runs (one launch a BatchNorm'd convolution) and its
+    output carries a backward; output and gradients equal those with the
+    plain version in the kernel's place, bit for bit (cuDNN's backward
+    held to its deterministic algorithms, so that two runs can agree)."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.manual_seed(0)
+    mods = [blocks.ConvBlock(32, 64), blocks.UpsampleBlock(64, 32)]
+    mods = [_randomise_conv_norms_(m, seed).to(cuda).eval() for seed, m in enumerate(mods)]
+    x = torch.randn(4, 32, 48, 48, device=cuda, dtype=dtype)
+    params = [p for m in mods for p in m.parameters()]
+
+    def run():
+        xr = x.clone().requires_grad_(True)
+        y = mods[1](mods[0](xr))
+        g = torch.ones_like(y)
+        return [y, *torch.autograd.grad(y, [xr, *params], g)]
+
+    cuda_kernels.reset_launch_counts()
+    got = run()
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 3
+    monkeypatch.setattr(epilogue, "_bn_epilogue_cuda", epilogue.bn_epilogue_plain)
+    ref = run()
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 3
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert torch.equal(a, b), i
+
+
+def test_epilogue_is_not_launched_in_train_mode(cuda):
+    """The dual encoder and the segmentor at full width: a train-mode
+    forward and backward launch no epilogue; the eval-mode forward under
+    no_grad launches 32."""
+    model = _seeded_bf16_dafnet()
+    x = torch.rand(2, 1, 192, 192, device=cuda)
+    cuda_kernels.reset_launch_counts()
+    model.train()
+    s1, s2 = model.enc_anatomy(x, x)
+    model.segmentor(torch.cat([s1, s2])).float().sum().backward()
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 0
+    model.eval()
+    with torch.no_grad():
+        s1, _ = model.enc_anatomy(x, x)
+        model.segmentor(s1)
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 32
+
+
 # ----------------------------------------------------------- training step
 
 def _expert_batch(conf, seed=0):
@@ -610,7 +780,10 @@ def _expert_batch(conf, seed=0):
 def test_full_width_train_step_runs_through_the_kernels(cuda):
     """One dafnet_chaos step_supervised at batch 6, 192x192: finite
     metrics, and the kernels launched 2 (warp), 1 (warp backward), 3
-    (rotations) and 2 (rounding: the loss and the fake pools) times."""
+    (rotations) and 2 (rounding: the loss and the fake pools) times; the
+    conv epilogue 32 times, all in the fake pools' eval-mode forward (30
+    in the dual encoder, 2 in the segmentor): the train-mode loss takes
+    none."""
     conf = dafnet_chaos()
     model = build_model(conf, device="cuda")
     with torch.no_grad():
@@ -623,7 +796,7 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
 
@@ -647,7 +820,7 @@ def test_full_width_bf16_train_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
     assert dtypes == [torch.bfloat16, torch.bfloat16]
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
     state = [*model.parameters(), *model.buffers()]
@@ -866,7 +1039,7 @@ def test_full_width_automated_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
     assert batches == [36, 12]
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert any(not torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
@@ -878,7 +1051,9 @@ def test_full_width_mmsdnet_steps_run_through_the_kernels(cuda, dtype):
     one step_discriminator at batch 6, 192x192: finite f32 metrics and
     launches 3/1/3/6 (B1: the loss's two fusion directions, the
     Z-regressor's two in one call, the pool's one; B4: two private heads in
-    the loss, the Z-regressor and the pool)."""
+    the loss, the Z-regressor and the pool). The conv epilogue runs in the
+    eval-mode forwards alone: 44 in the Z-regressor's two encoders (22
+    each), 46 in the pool's (and its segmentor's 2)."""
     conf = mmsdnet_chaos()
     conf.compute_dtype = dtype
     model = build_model(conf, device="cuda")
@@ -893,7 +1068,7 @@ def test_full_width_mmsdnet_steps_run_through_the_kernels(cuda, dtype):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 3, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 6,
-                                            "tps_flow_dbg": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 44 + 46}
     metrics.update(d_metrics)
     assert sorted(metrics) == ["KL", "adv_M", "dis_M", "loss", "rec_X", "rec_Z",
                                "supervised_Mask"]
@@ -1045,7 +1220,9 @@ def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
     steps through the mesh code against the mesh-free steps. The first
     step's generator metrics are equal bit for bit (an all-reduce of one
     rank is a copy); every parameter within two of its Adam steps; 2/1/3/2
-    launches a step."""
+    launches a step, and 18 conv epilogues (the fake pools' eval-mode
+    forward at downsample 2: 7 * 2 + 2 in the encoder, 2 in the
+    segmentor)."""
     import socket
 
     import torch.distributed as dist
@@ -1087,7 +1264,7 @@ def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
     for k, _ in model.named_parameters():
         assert (sd1[k] - sd0[k]).abs().max().item() <= 2.001 * 4 * lr, k
     assert l0 == l1 == {"tps_warp_fwd": 4, "tps_warp_bwd": 2, "nearest_warp": 6, "round_ste": 4,
-                        "tps_flow_dbg": 0}
+                        "tps_flow_dbg": 0, "bn_epilogue": 2 * 18}
 
 
 # ------------------------------------------ B1's general entry, tensor parallelism
