@@ -1,1 +1,2 @@
-"""The harness of a cell, by kind (train, infer): its set-up, measured window and output check."""
+"""The harness of a cell, a module a kind (train, infer), found by name
+by common.harness: its set-up, measured window and output check."""

@@ -4,9 +4,12 @@ readers of the metrics, and the result line.
 A cell is found by name: BENCHMARK.json names its configuration and its
 traffic; benchmark/workloads/<cell>.json holds the harness kind, the
 traffic's parameters and the limits of its output check;
-benchmark/configs/<config>.json the configuration as run; each metric
-<name> is read by benchmark/metrics/<name>.py. Nothing here names a cell,
-a configuration or a metric.
+benchmark/configs/<config>.json the configuration as run. Code is found by
+name too, each from the files of the tree at `bench_dir`: each metric
+<name> is read by benchmark/metrics/<name>.py, a harness kind is
+benchmark/harness/<kind>.py, and a configuration's plain reference model is
+benchmark/reference/<reference>.py. Nothing here names a cell, a
+configuration, a model, a kind or a metric.
 """
 
 import importlib.util
@@ -14,6 +17,7 @@ import json
 import os
 import sys
 import types
+import zlib
 
 import numpy as np
 
@@ -83,13 +87,44 @@ def metric_names(bench, name, trace):
     return [m for m in group if name in m.get("workloads", [name])]
 
 
+def _module(bench_dir, folder, name):
+    """benchmark/<folder>/<name>.py of the tree at `bench_dir`, loaded from
+    its file once a process, so that a copy of the tree brings its own."""
+    path = os.path.abspath(os.path.join(bench_dir, folder, name + ".py"))
+    key = "benchmark_%s_%s_%08x" % (folder, name.replace(".", "_"), zlib.crc32(path.encode()))
+    if key not in sys.modules:
+        if not os.path.exists(path):
+            raise SystemExit("no %s" % path)
+        spec = importlib.util.spec_from_file_location(key, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[key] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
+
+
 def reader(metric, bench_dir=BENCH_DIR):
-    path = os.path.join(bench_dir, "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location("benchmark_metric_" + metric.replace(".", "_"),
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(bench_dir, "metrics", metric).read
+
+
+def harness(kind, bench_dir=BENCH_DIR):
+    """The harness module of a workload's `kind`. It gives `run` (set-up,
+    the measured window and the output check), `reading` and `MODES` (the
+    readings that set the check's limits, control.py), `unit_of_work` (the
+    work that flops/count.py counts) and the CPU cut of its workloads,
+    `TINY_TRAFFIC` and `TINY_CHECKS` (tests/tiny.py)."""
+    return _module(bench_dir, "harness", kind)
+
+
+def reference_model(config, bench_dir=BENCH_DIR):
+    """The plain reference's model class of a configuration file: `MODEL`
+    of the module that its `reference` key names, by default its model's
+    name."""
+    return _module(bench_dir, "reference", config.get("reference",
+                                                      config["model"]["model"])).MODEL
 
 
 def read_metrics(metrics, ctx, bench_dir=BENCH_DIR):

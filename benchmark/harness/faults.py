@@ -67,3 +67,8 @@ def moved(predict):
 
 
 STEP_FAULTS = {"unchanged": unchanged, "half_batch": half_batch}
+
+# the reference in the program's place, by control.py's mode: the control
+# (fp8, the nearest precision below the configurations' bfloat16), and the
+# reference in float32 (a witness of what the stated bfloat16 costs)
+IN_PLACE = {"control": "fp8", "float32": "float32"}

@@ -17,29 +17,37 @@ import types
 import numpy as np
 import torch
 
-from benchmark.harness import check, common, program
+from benchmark.harness import check, common, faults, program
 from benchmark.harness.trace import Spans, Trace, profiler, shapes_profiler
-from benchmark.reference.models import MODELS
 from benchmark.reference.precision import set_precision
 from benchmark.traffic import studies, weights
 
 
 # requests under the short shapes profile after a traced window
 SHAPE_REQUESTS = 2
+# control.py's modes: the program as a run drives it (a short window), or
+# the reference put in its place (faults.IN_PLACE)
+MODES = ("sound", *faults.IN_PLACE)
+# the CPU cut of an infer workload (tests/tiny.py): a few short studies at
+# 32 x 32, and limits a little above what sound runs read there in float32
+TINY_TRAFFIC = {"hw": [32, 32], "slices": [4, 7], "sample_from": 6, "sampled": 2}
+TINY_CHECKS = {"volume_gap": 1e-4, "region_gap": 1e-4}
 
 
 class Inputs:
-    def __init__(self, workload, config, seed, device):
+    def __init__(self, workload, config, seed, device, bench_dir=common.BENCH_DIR):
         self.workload = workload
         self.seeds = common.seeds(seed)
         fields = common.model_fields(config, workload, self.seeds.conf)
         self.conf = program.experiment_config(fields)
         self.ref_conf = common.namespace(fields)
+        self.reference = common.reference_model(config, bench_dir)
         self.device = device
         self.pool = studies.request_pool(workload["traffic"], self.seeds.studies, device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        self.state = weights.make(self.ref_conf, config["weights"], self.seeds.weights, device)
+        self.state = weights.make(self.reference, self.ref_conf, config["weights"],
+                                  self.seeds.weights, device)
 
     def sample(self):
         """Which requests are kept for the check: `sampled` positions drawn
@@ -62,15 +70,40 @@ def reference_masks(inputs, kept):
 
 
 def reference_model(inputs, precision):
-    model = MODELS[inputs.ref_conf.model](inputs.ref_conf)
+    model = inputs.reference(inputs.ref_conf)
     model.load_state_dict(inputs.state)
     return set_precision(model.to(inputs.device), precision).eval()
 
 
-def run(seed, seconds, trace, workload, config, t0, device, wrap_predict=None):
+def unit_of_work(conf, workload, model_cls):
+    """predict_mask over one slice on meta tensors, as a function that
+    flops/count.py counts."""
+    with torch.device("meta"):
+        model = model_cls(conf).eval()
+    x = torch.zeros((1, *conf.input_hw, 1), device="meta")
+    return lambda: model.predict_mask(workload["traffic"]["modality_index"], [x, x])
+
+
+def reading(mode, seed, seconds, workload, config, device, bench_dir=common.BENCH_DIR):
+    """control.py's numbers of one seed: a window of `seconds` with the
+    program, or with the reference in its place (faults.IN_PLACE)."""
+    wrap = None
+    if mode in faults.IN_PLACE:
+        def wrap(predict):
+            model = reference_model(Inputs(workload, config, seed, device, bench_dir),
+                                    faults.IN_PLACE[mode])
+            return lambda index, fusion, images, device: model.predict_mask(
+                index, [torch.as_tensor(x, device=device) for x in images])
+    res = run(seed, seconds, False, workload, config, time.perf_counter(), device, wrap,
+              bench_dir)
+    return res.numbers, {"requests": res.attempted}
+
+
+def run(seed, seconds, trace, workload, config, t0, device, wrap_predict=None,
+        bench_dir=common.BENCH_DIR):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     parts = {"start": time.perf_counter() - t0}
-    inputs = Inputs(workload, config, seed, device)
+    inputs = Inputs(workload, config, seed, device, bench_dir)
     parts["inputs"] = time.perf_counter() - t0
     t = workload["traffic"]
     model = program.build_model(inputs.conf, inputs.state, device)

@@ -17,7 +17,7 @@ import types
 import numpy as np
 import torch
 
-from benchmark.harness import check, common, program
+from benchmark.harness import check, common, faults, program
 from benchmark.harness.trace import Spans, Trace, profiler, shapes_profiler
 from benchmark.reference.batches import Paired, training_batches
 from benchmark.reference.train import Trainer
@@ -27,6 +27,14 @@ from benchmark.traffic import studies, weights
 CHECKED_STEPS = 3
 # batches under the short shapes profile after a traced window
 SHAPE_STEPS = 2
+# control.py's modes: the program's first steps, the reference in its
+# place (faults.IN_PLACE), or the program with half of each batch left out
+MODES = ("sound", *faults.IN_PLACE, "half_batch")
+# the CPU cut of a train workload (tests/tiny.py): 3 short studies at
+# 32 x 32, batch 2, and a limit a little above what sound runs read there
+# in float32
+TINY_TRAFFIC = {"hw": [32, 32], "slices": [4, 7], "studies": 3, "batch": 2}
+TINY_CHECKS = {"stats_gap": 1e-3}
 
 
 class Inputs:
@@ -34,17 +42,19 @@ class Inputs:
     studies, the weights, the program's conf and the reference's view of
     it, and the generator of the step noise."""
 
-    def __init__(self, workload, config, seed, device):
+    def __init__(self, workload, config, seed, device, bench_dir=common.BENCH_DIR):
         self.workload = workload
         self.seeds = common.seeds(seed)
         fields = common.model_fields(config, workload, self.seeds.conf)
         self.conf = program.experiment_config(fields)
         self.ref_conf = common.namespace(fields)
+        self.reference = common.reference_model(config, bench_dir)
         self.device = device
         self.studies = studies.training_studies(workload["traffic"], self.seeds.studies, device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        self.state = weights.make(self.ref_conf, config["weights"], self.seeds.weights, device)
+        self.state = weights.make(self.reference, self.ref_conf, config["weights"],
+                                  self.seeds.weights, device)
         self.noise_gen = torch.Generator(device=device).manual_seed(self.seeds.noise)
 
     def noise(self):
@@ -110,7 +120,7 @@ def follow(inputs, noises, precision=None, full=True):
     another policy (reference/precision.py). Without `full`, the first
     step's losses and running means alone."""
     dev = inputs.device
-    trainer = Trainer(inputs.ref_conf, inputs.state, dev,
+    trainer = Trainer(inputs.reference, inputs.ref_conf, inputs.state, dev,
                       precision or inputs.ref_conf.compute_dtype)
     names = {id(p): n for n, p in trainer.model.named_parameters()}
     np.random.seed(inputs.seeds.numpy)
@@ -155,10 +165,61 @@ def numbers(inputs, prog, ref):
     return check.training_numbers(prog, ref, inputs.workload["compare_losses"])
 
 
-def run(seed, seconds, trace, workload, config, t0, device, wrap_steps=None):
+def _free(device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def unit_of_work(conf, workload, model_cls):
+    """One batch of the workload's step calls on meta tensors, as a
+    function that flops/count.py counts; the optimizers' updates are left
+    out."""
+    dev = torch.device("meta")
+    trainer = Trainer(model_cls, conf, None, dev)
+    trainer._adam = lambda name, grads: None
+    B, (H, W) = conf.batch_size, conf.input_hw
+    K = conf.n_pairs if conf.automatedpairing else 1
+    nm = conf.num_masks
+    x1, x2 = ("x1_pairs", "x2_pairs") if conf.automatedpairing else ("x1", "x2")
+    shapes = {x1: (B, H, W, K), x2: (B, H, W, K), "m1": (B, H, W, nm), "m2": (B, H, W, nm),
+              "dm1": (B, H, W, nm), "dm2": (B, H, W, nm), "dx1": (B, H, W, 1),
+              "dx2": (B, H, W, 1), "dm": (B, H, W, nm)}
+    batch = {k: torch.zeros(v, device=dev) for k, v in shapes.items()}
+    parts = {"sup": batch, "unsup": batch, "disc": batch}
+
+    def work():
+        gen = torch.Generator(device="cpu")
+        for method, part, kind in workload["steps"]:
+            nz = noise_mod.draw(workload["noise"][kind], gen, B, conf.num_z, conf.rotation_range)
+            nz = {k: [t.to(dev) for t in v] if isinstance(v, list) else v.to(dev)
+                  for k, v in nz.items()}
+            getattr(trainer, method)(dict(parts[part]), nz)
+    return work
+
+
+def reading(mode, seed, seconds, workload, config, device, bench_dir=common.BENCH_DIR):
+    """control.py's numbers of one seed over the first three steps (no
+    window: `seconds` is not used), from the program, the program with a
+    fault (faults.STEP_FAULTS) or the reference in its place
+    (faults.IN_PLACE), each against the reference."""
+    inputs = Inputs(workload, config, seed, device, bench_dir)
+    if mode in faults.IN_PLACE:
+        noises = [inputs.noise() for _ in range(CHECKED_STEPS)]
+        prog = follow(inputs, noises, precision=faults.IN_PLACE[mode])
+    else:
+        side = ProgramSide(inputs, faults.STEP_FAULTS.get(mode))
+        prog, noises = first_steps(side)
+        del side
+    _free(device)
+    return numbers(inputs, prog, follow(inputs, noises))
+
+
+def run(seed, seconds, trace, workload, config, t0, device, wrap_steps=None,
+        bench_dir=common.BENCH_DIR):
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     parts = {"start": time.perf_counter() - t0}
-    inputs = Inputs(workload, config, seed, device)
+    inputs = Inputs(workload, config, seed, device, bench_dir)
     parts["inputs"] = time.perf_counter() - t0
     side = ProgramSide(inputs, wrap_steps)
     parts["program"] = time.perf_counter() - t0
@@ -205,9 +266,7 @@ def run(seed, seconds, trace, workload, config, t0, device, wrap_steps=None):
         shapes.stop()
         shapes = Trace(shapes, None)
     del side, losses, prof
-    gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(device)
 
     ref = follow(inputs, noises, full=full)
     nums, where = numbers(inputs, prog, ref)

@@ -6,7 +6,9 @@ component names and the same interleaved batch stacking (one call over
 several inputs, per-input BatchNorm statistics), in float32.
 
 `conf` is a namespace of the configuration file's `model` fields
-(benchmark/configs/*.json).
+(benchmark/configs/*.json). A configuration finds its model class through
+the module named after it (dafnet.py, mmsdnet.py; harness/common.py's
+`reference_model`).
 """
 
 import torch
@@ -297,5 +299,3 @@ class MMSDNet(_Model):
         loss = losses.lsgan_disc(*split(d_all, 2)) + penalty
         return loss, {"dis_M": loss}
 
-
-MODELS = {"dafnet": DAFNet, "mmsdnet": MMSDNet}

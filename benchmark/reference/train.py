@@ -13,7 +13,7 @@ zero gradient, so its Adam count advances and its value stays.
 
 import torch
 
-from benchmark.reference.models import MODELS, add_residual
+from benchmark.reference.models import add_residual
 from benchmark.reference.precision import set_precision
 from benchmark.reference.warp import rotate
 
@@ -31,14 +31,14 @@ def _adam_step(opt, params, grads):
 
 
 class Trainer:
-    """The model and its optimizers. `optimizers` maps a name to (the
-    optimizer, its parameters): 'gen', one a discriminator, and MMSDNet's
-    'zreg'."""
+    """The model, an instance of `model_cls`, and its optimizers.
+    `optimizers` maps a name to (the optimizer, its parameters): 'gen', one a
+    discriminator, and 'zreg' where the model has a Z-regressor (MMSDNet)."""
 
-    def __init__(self, conf, state_dict, device, precision="float32"):
+    def __init__(self, model_cls, conf, state_dict, device, precision="float32"):
         self.conf = conf
         with torch.device(device):
-            model = MODELS[conf.model](conf)
+            model = model_cls(conf)
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = set_precision(model, precision).eval()
@@ -73,7 +73,7 @@ class Trainer:
         return self._step(batch, noise, False)
 
     def _step(self, batch, noise, supervised):
-        if self.conf.model == "mmsdnet":
+        if "zreg" in self.optimizers:
             return self._mmsdnet_gen_step(batch, noise, supervised)
         conf, model = self.conf, self.model
         batch = {k: v.float() for k, v in batch.items()}

@@ -15,7 +15,6 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
@@ -71,9 +70,8 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    harness = importlib.import_module("benchmark.harness." + workload["kind"])
-    res = harness.run(args.seed, args.seconds, bool(args.trace), workload, config, T0,
-                     torch.device("cuda", 0))
+    res = common.harness(workload["kind"]).run(args.seed, args.seconds, bool(args.trace),
+                                               workload, config, T0, torch.device("cuda", 0))
     found = common.forbidden_modules()
     if found:
         print("the run's process holds %s" % ", ".join(found), file=sys.stderr)

@@ -9,7 +9,6 @@ import time
 import pytest
 import torch
 
-from benchmark import control
 from benchmark.harness import check, faults, infer, train
 from benchmark.tests import tiny
 
@@ -20,7 +19,7 @@ TRAIN_CELLS = ["dafnet-train-expert", "mmsdnet-train", "dafnet-train-automated"]
 def test_control_is_not_correct(name):
     torch.set_num_threads(1)
     _, _, workload, config = tiny.cell(name)
-    nums, _ = control.training_reading("control", tiny.SEED, workload, config, tiny.CPU)
+    nums, _ = train.reading("control", tiny.SEED, 0, workload, config, tiny.CPU)
     assert not check.verdict(nums, workload["checks"])[0], nums
 
 
@@ -37,7 +36,7 @@ def test_training_fault_is_not_correct(name, fault):
 def test_inference_control_is_not_correct():
     torch.set_num_threads(1)
     _, _, workload, config = tiny.cell("dafnet-infer-volumes")
-    nums, _ = control.inference_reading("control", tiny.SEED, 1.0, workload, config, tiny.CPU)
+    nums, _ = infer.reading("control", tiny.SEED, 1.0, workload, config, tiny.CPU)
     assert not check.verdict(nums, workload["checks"])[0], nums
 
 

@@ -1,8 +1,9 @@
 """Seeded weights of a model, made on the device in a few large calls and
 handed to the program and to the reference alike.
 
-The model's structure is the reference's (benchmark/reference/models.py),
-built on the meta device, so nothing of the program is read. Kernels of
+The model's structure is the reference's (the class that
+harness/common.py's `reference_model` finds for the configuration), built
+on the meta device, so nothing of the program is read. Kernels of
 convolutions and dense layers are drawn as Flax draws them: a unit normal
 cut at +-2, scaled by sqrt(scale / fan) / 0.8796 (he_normal: 2 / fan_in;
 lecun_normal: 1 / fan_in; glorot_normal: 2 / (fan_in + fan_out)); a
@@ -18,7 +19,6 @@ import math
 import torch
 
 from benchmark.reference import layers
-from benchmark.reference.models import MODELS
 
 _TRUNC_STD = 0.87962566103423978
 
@@ -38,10 +38,10 @@ def _std(module):
     return math.sqrt(scale / fan) / _TRUNC_STD
 
 
-def make(conf, changes, seed, device):
-    """{state_dict key: float32 tensor on `device`} of conf.model."""
+def make(model_cls, conf, changes, seed, device):
+    """{state_dict key: float32 tensor on `device`} of a `model_cls(conf)`."""
     with torch.device("meta"):
-        model = MODELS[conf.model](conf)
+        model = model_cls(conf)
     g = torch.Generator(device=device).manual_seed(abs(int(seed)) % 2 ** 63)
     state = {k: torch.zeros(v.shape, device=device) for k, v in model.state_dict().items()}
     kernels = [(name + ".weight", _std(m)) for name, m in model.named_modules()
