@@ -164,6 +164,31 @@ def cardiac_3d() -> ExperimentConfig:
     )
 
 
+def unet3d_cicek() -> ExperimentConfig:
+    """The 3D U-Net of Cicek et al. (arXiv:1606.06650, section 2 and Fig.
+    1) at its published widths, served by overlap-tile
+    (models/volumetric.py, model 'unet3d'): 132 x 132 x 116 input tiles
+    of 3 channels (volume_shape as (D, H, W, C)), 44 x 44 x 28 output
+    tiles of 3 classes (num_masks + the background), base width 32, 3
+    pooling levels, 16 tiles a forward (batch_size), bf16 activations.
+    Not a preset: the JAX package has no such model, and PRESETS keeps
+    the JAX package's."""
+    return ExperimentConfig(
+        folder="unet3d_cicek",
+        model="unet3d",
+        executor="cardiac3d",
+        dataset_name="cardiac",
+        test_dataset="cardiac",
+        batch_size=16,
+        num_masks=2,
+        input_shape=(132, 132, 3),
+        volume_shape=(116, 132, 132, 3),
+        filters3d=32,
+        downsample3d=3,
+        compute_dtype="bfloat16",
+    )
+
+
 PRESETS = {
     "mmsdnet_config_chaos": mmsdnet_chaos,
     "dafnet_config_chaos": dafnet_chaos,

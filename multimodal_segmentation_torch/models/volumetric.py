@@ -21,6 +21,20 @@ weights stay replicated; rank 0 alone writes the executor's files.
 A train step on the GPU launches two nearest_warp kernels (the rotation
 of the volumes and of the masks) on each rank and nothing else of the
 port's kernels.
+
+With conf.model == "unet3d" the segmenter holds the 3D U-Net of Cicek et
+al. (nn/unet3d.py::UNet3DCicek, arXiv:1606.06650) instead, for inference
+alone, on one device: `predict` serves a whole volume by overlap-tile.
+The volume is mirrored at its borders by the net's context (44 voxels on
+each side at the published tile), and by what more makes each axis a
+whole number of output tiles; input tiles of conf.volume_shape[:3] are cut
+from it on a stride of one output tile, run conf.batch_size at a time,
+and their outputs stitched edge to edge and cropped to the volume. While
+a torch.profiler session runs, `predict` records a `predict_volume` span
+a volume (slices = D, tiles) with children `predict3d.inputs` (the copy
+to the device and the mirror padding), `predict3d.tiles` (gathering a
+batch of tiles), `predict3d.net` (the forward) and `predict3d.stitch`
+(utils/tracing.py).
 """
 
 import csv
@@ -35,11 +49,12 @@ from multimodal_segmentation_torch.losses import combined_dice_bce, dice_np_volu
 from multimodal_segmentation_torch.models import full_f32_matmuls
 from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.nn.blocks import flax_init_
-from multimodal_segmentation_torch.nn.unet3d import UNet3D
+from multimodal_segmentation_torch.nn.unet3d import UNet3D, UNet3DCicek
 from multimodal_segmentation_torch.ops.augment import random_rotate_volumes, random_rotation_angles
 from multimodal_segmentation_torch.parallel.collectives import all_reduce_flat_, gather
 from multimodal_segmentation_torch.parallel.distributed import barrier, is_writer
 from multimodal_segmentation_torch.parallel.mesh import shard_batch
+from multimodal_segmentation_torch.utils import tracing
 from multimodal_segmentation_torch.utils.convert import unet3d_npz, unet3d_state_dict_from_npz
 from multimodal_segmentation_torch.utils.nan_checks import check_finite, install_nan_checks
 
@@ -53,6 +68,29 @@ def adam(params, lr):
     eps 1e-8, lr * m_hat / (sqrt(v_hat) + eps). Not the 2-D path's Keras
     Adam (train/state.py), whose eps is 1e-7."""
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def mirror_index(size, before, total, device):
+    """The indices into an axis of `size` of `total` positions starting
+    `before` ahead of it, mirrored at both ends without repeating the edge
+    (numpy.pad's 'reflect', which goes on mirroring where a pad is longer
+    than the axis)."""
+    if size < 2:
+        raise ValueError("an axis of size %d cannot be mirrored" % size)
+    period = 2 * (size - 1)
+    r = torch.remainder(torch.arange(-before, total - before, device=device), period)
+    return torch.where(r < size, r, period - r)
+
+
+def tile_view(t, counts, step, size, axes):
+    """The grid of tiles of `t` as a view of shape (*counts, *t.shape with
+    its `axes` cut to `size`): tile (i, j, k) starts at (i, j, k) * step
+    along t's (D, H, W) `axes`."""
+    shape = list(t.shape)
+    for a, n in zip(axes, size):
+        shape[a] = n
+    grid = [s * t.stride(a) for s, a in zip(step, axes)]
+    return t.as_strided((*counts, *shape), (*grid, *t.stride()))
 
 
 class Cardiac3DSegmenter:
@@ -84,8 +122,11 @@ class Cardiac3DSegmenter:
         """(params, opt): a UNet3D on the device with Flax's initialisers
         drawn from a torch.Generator seeded with `seed`, or holding
         `state_dict` (e.g. the JAX package's weights through
-        utils/convert.py), and a fresh Adam over it."""
+        utils/convert.py), and a fresh Adam over it; for the unet3d model
+        (the net in eval mode, None) (`_init_cicek`)."""
         conf = self.conf
+        if conf.model == "unet3d":
+            return self._init_cicek(seed, state_dict), None
         net = UNet3D(in_channels=conf.volume_shape[-1], filters=conf.filters3d,
                      downsample=conf.downsample3d, out_channels=conf.num_masks + 1,
                      dtype=self.dtype)
@@ -99,6 +140,26 @@ class Cardiac3DSegmenter:
             install_nan_checks(net)
         net = net.to(self.device)
         return net, adam(net.parameters(), conf.lr)
+
+    def _init_cicek(self, seed, state_dict):
+        """The 3D U-Net of arXiv:1606.06650 for conf.model == "unet3d": input
+        tiles of conf.volume_shape, filters3d and downsample3d its base
+        width and depth, in eval mode (BatchNorm on its running
+        statistics), with no optimizer: it is served, not trained."""
+        conf = self.conf
+        if self.mesh is not None:
+            raise ValueError("the unet3d model runs on one device, not on a mesh")
+        net = UNet3DCicek(in_channels=conf.volume_shape[-1], filters=conf.filters3d,
+                          depth=conf.downsample3d, out_channels=conf.num_masks + 1,
+                          dtype=self.dtype)
+        net.output_size(conf.volume_shape[:3])
+        if state_dict is None:
+            flax_init_(net, torch.Generator().manual_seed(seed))
+        else:
+            net.load_state_dict(state_dict)
+        if conf.debug_nans:
+            install_nan_checks(net)
+        return net.to(self.device).eval()
 
     def shard_batch(self, batch):
         """This rank's part of a global host batch of (B, D, ...) arrays
@@ -135,6 +196,11 @@ class Cardiac3DSegmenter:
         loss / n_space, whose gradients summed over 'space' (the halos and
         norm statistics carry each slab's part to its neighbours) and
         averaged over 'data' are the global loss's."""
+        if self.conf.model == "unet3d":
+            raise NotImplementedError(
+                "the unet3d model (the 3D U-Net of arXiv:1606.06650) is served by predict and "
+                "evaluate only: its training, the paper's weighted softmax loss on sparsely "
+                "annotated slices, is not implemented")
         data, space = self.data, self.space
         if self.conf.rotation_range > 0:
             if thetas is None:
@@ -168,11 +234,53 @@ class Cardiac3DSegmenter:
         device, of a (B, D, H, W, 3) array or tensor. On a mesh with D
         split over 'space' each rank runs its D-slab of every study and
         the slabs are gathered: any batch size works, as the JAX
-        package's predict shards the depth only (:138-142)."""
+        package's predict shards the depth only (:138-142). The unet3d
+        model serves each volume by overlap-tile (`predict_tiled`)."""
+        if self.conf.model == "unet3d":
+            out = [self.predict_tiled(params, volumes[i:i + 1]) for i in range(len(volumes))]
+            return out[0] if len(out) == 1 else torch.cat(out)
         if self.space is None or self.space.size == 1:
             return params(torch.as_tensor(volumes, device=self.device))
         x = shard_batch(self.mesh, volumes, self.device, (None, "space"))
         return gather(params(x), 1, self.space)
+
+    @torch.inference_mode()
+    def predict_tiled(self, net, volume):
+        """(1, D, H, W, num_masks + 1) f32 class probabilities on the device
+        of a (1, D, H, W, C) volume (array or tensor) by overlap-tile
+        through the unet3d model `net` (module docstring): every axis of D,
+        H and W at least 2."""
+        tile_in = tuple(self.conf.volume_shape[:3])
+        tile_out = net.output_size(tile_in)
+        shape = tuple(volume.shape[1:4])
+        # output tiles along each axis, the context on each side of one, and
+        # the mirror-padded extent that the input tiles span
+        counts = tuple(-(-s // o) for s, o in zip(shape, tile_out))
+        margin = tuple((i - o) // 2 for i, o in zip(tile_in, tile_out))
+        padded = tuple(c * o + i - o for c, o, i in zip(counts, tile_out, tile_in))
+        n = counts[0] * counts[1] * counts[2]
+        dev = self.device
+        with tracing.span("predict_volume", slices=int(shape[0]), tiles=n):
+            with tracing.span("predict3d.inputs"):
+                x = torch.as_tensor(volume, device=dev)[0].to(self.dtype).permute(3, 0, 1, 2)
+                d, h, w = (mirror_index(s, m, p, dev) for s, m, p in zip(shape, margin, padded))
+                x = x[:, d[:, None, None], h[None, :, None], w[None, None, :]].contiguous()
+                tiles = tile_view(x, counts, tile_out, tile_in, (1, 2, 3))
+                out = torch.empty((*(c * o for c, o in zip(counts, tile_out)),
+                                   net.head.out_channels), device=dev)
+                stitched = tile_view(out, counts, tile_out, tile_out, (0, 1, 2))
+                k = torch.arange(n, device=dev)
+                grid = (k // (counts[1] * counts[2]), k // counts[2] % counts[1], k % counts[2])
+            for b in range(0, n, self.conf.batch_size):
+                at = tuple(g[b:b + self.conf.batch_size] for g in grid)
+                with tracing.span("predict3d.tiles"):
+                    batch = tiles[at]
+                with tracing.span("predict3d.net"):
+                    probs = net(batch)
+                with tracing.span("predict3d.stitch"):
+                    stitched[at] = probs.permute(0, 2, 3, 4, 1)
+            with tracing.span("predict3d.stitch"):
+                return out[:shape[0], :shape[1], :shape[2]].contiguous()[None]
 
     def evaluate(self, params, volumes, masks, batch=2):
         """Per-study whole-volume binarised Dice of the foreground classes,

@@ -237,11 +237,14 @@ def _on_card(x):
 
 def conv_norm(conv, norm, x, groups=1, relu=True):
     """relu?(norm(conv(x), groups)): a Conv2d with a bias, its norm and an
-    optional ReLU.
+    optional ReLU; or, on (N, C, D, H, W) volumes, a convolution of
+    nn/unet3d.py with its BatchNorm3d (a BatchNorm on the (N, C, D, H*W)
+    view).
 
     On the GPU a BatchNorm in eval mode runs with its convolution's bias
     and the ReLU as one pass over the bias-free convolution's output: the
-    eval-mode conv epilogue (ops/epilogue.py::bn_epilogue), which rounds
+    eval-mode conv epilogue (ops/epilogue.py::bn_epilogue; a 5-D output
+    as its (N, C, D, H*W) view, the same kernel), which rounds
     as the separate operations do, so the output is the same bit for bit,
     and which has a backward. Every other case runs the operations one by
     one: train mode (batch statistics are a reduction, not an affine),

@@ -17,13 +17,18 @@ its neighbours (parallel/halo.py), each InstanceNorm3D forms its
 statistics over the whole D axis with all-reduces over 'space', and since
 pooling and upsampling act on H and W only, D stays split through the
 whole UNet (nn/unet3d.py:16-22 of the JAX package).
+
+`UNet3DCicek` is a second net beside it, with no JAX counterpart: the 3D
+U-Net of Cicek et al., "3D U-Net: Learning Dense Volumetric Segmentation
+from Sparse Annotation" (MICCAI 2016, arXiv:1606.06650, section 2 and
+Fig. 1), for inference by overlap-tile (models/volumetric.py).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from multimodal_segmentation_torch.nn.blocks import _fan, _variance_scaling_
+from multimodal_segmentation_torch.nn.blocks import BatchNorm, _fan, _variance_scaling_, conv_norm
 from multimodal_segmentation_torch.parallel.collectives import all_reduce_sum
 from multimodal_segmentation_torch.parallel.halo import sharded_conv
 
@@ -164,3 +169,140 @@ class UNet3D(nn.Module):
             x = getattr(self, "ConvBlock3D_%d" % (d + 1 + i))(x)
         x = getattr(self, "Conv_%d" % d)(x)
         return torch.softmax(x.float(), dim=1).permute(0, 2, 3, 4, 1)
+
+
+class ValidConv3d(Conv3d):
+    """A cubic Conv3d with 'VALID' padding (no padding: each side of the
+    output is k - 1 shorter than the input's). `with_bias=False` leaves
+    out the bias, for conv_norm's epilogue, which adds it."""
+
+    def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None):
+        super().__init__(in_ch, out_ch, k, init=init, dtype=dtype)
+        self.padding = (0, 0, 0)
+
+    def forward(self, x, with_bias=True):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        bias = self.bias.to(dt) if with_bias else None
+        return F.conv3d(x.to(dt), self.weight.to(dt), bias)
+
+
+class UpConv3d(nn.ConvTranspose3d):
+    """2x2x2 up-convolution with stride 2 and no bias, keeping the channel
+    count; computes in `dtype` as Conv3d. Each output voxel takes one tap
+    of each input channel, so its he_normal fan-in is the input channels."""
+
+    def __init__(self, channels, dtype=None):
+        super().__init__(channels, channels, 2, stride=2, bias=False)
+        self.dtype = dtype
+
+    def flax_init_(self, generator):
+        scale, fan = _fan("he_normal", self.in_channels, self.out_channels)
+        _variance_scaling_(self.weight, scale, fan, generator)
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        return F.conv_transpose3d(x.to(dt), self.weight.to(dt), None, stride=2)
+
+
+class BatchNorm3d(BatchNorm):
+    """nn/blocks.py::BatchNorm over (N, C, D, H, W), as its (N, C, D, H*W)
+    view: the same statistics (over N, D, H and W), epsilon, running
+    statistics and rounding, and so the same eval-mode epilogue on the
+    GPU (nn/blocks.py::conv_norm)."""
+
+    def forward(self, x, groups=1):
+        n, c, d, h, w = x.shape
+        return super().forward(x.reshape(n, c, d, h * w), groups).view(x.shape)
+
+
+class ValidBlock3D(nn.Module):
+    """[valid 3x3x3 conv -> BatchNorm -> ReLU] x 2: in_ch -> mid -> out."""
+
+    def __init__(self, in_ch, mid, out, dtype=None):
+        super().__init__()
+        self.conv_0 = ValidConv3d(in_ch, mid, 3, dtype=dtype)
+        self.bn_0 = BatchNorm3d(mid)
+        self.conv_1 = ValidConv3d(mid, out, 3, dtype=dtype)
+        self.bn_1 = BatchNorm3d(out)
+
+    def forward(self, x):
+        return conv_norm(self.conv_1, self.bn_1, conv_norm(self.conv_0, self.bn_0, x))
+
+
+def center_crop(x, size):
+    """The centre (D, H, W) = `size` of (B, C, D, H, W) x, as a view."""
+    lo = [(s - t) // 2 for s, t in zip(x.shape[2:], size)]
+    return x[:, :, lo[0]:lo[0] + size[0], lo[1]:lo[1] + size[1], lo[2]:lo[2] + size[2]]
+
+
+class UNet3DCicek(nn.Module):
+    """The 3D U-Net of arXiv:1606.06650 (section 2, Fig. 1), all of whose
+    convolutions are valid, so a tile's output is smaller than its input
+    and depends on nothing outside it.
+
+    Analysis path: `depth` levels and a bottom level, each two valid 3x3x3
+    conv + BatchNorm + ReLU whose widths double within the level, filters
+    * 2**l then twice that (32 -> 64, 64 -> 128, 128 -> 256 and at the
+    bottom 256 -> 512 at the published filters=32, depth=3), then, but at
+    the bottom, a 2x2x2 max pool with stride 2 on all three axes.
+    Synthesis path: per level a 2x2x2 stride-2 up-convolution keeping the
+    channels, the analysis level's output centre-cropped to its size and
+    concatenated after it, then two conv + BatchNorm + ReLU down to the
+    level's second width. Head: a 1x1x1 conv to `out_channels` classes and
+    a softmax over them. Every conv but the up-convolutions has a bias:
+    19,069,955 parameters at the published widths, besides the 4,672 of
+    the 14 BatchNorms.
+
+    Channels-first at its boundary: (N, in_channels, D, H, W) tiles in,
+    (N, out_channels, D', H', W') f32 class probabilities out, with
+    (D', H', W') = output_size((D, H, W)). Parameters and BatchNorm
+    statistics stay f32; under a bf16 `dtype` every conv but the head
+    computes in bf16; the head and the softmax compute in f32. BatchNorm
+    uses its running statistics in eval mode, the net's only use here."""
+
+    def __init__(self, in_channels=3, filters=32, depth=3, out_channels=3, dtype=None):
+        super().__init__()
+        self.depth = depth
+        widths = [filters * 2 ** level for level in range(depth + 1)]
+        cin = in_channels
+        for level, w in enumerate(widths):
+            setattr(self, "analysis_%d" % level, ValidBlock3D(cin, w, 2 * w, dtype))
+            cin = 2 * w
+        for i, level in enumerate(reversed(range(depth))):
+            setattr(self, "upconv_%d" % i, UpConv3d(cin, dtype))
+            w = 2 * widths[level]
+            setattr(self, "synthesis_%d" % i, ValidBlock3D(cin + w, w, w, dtype))
+            cin = w
+        self.head = Conv3d(cin, out_channels, 1, init="he_normal")
+
+    def output_size(self, size):
+        """The output's (D, H, W) of an input tile of `size`; ValueError
+        where a max pool would meet an odd size or a size runs out."""
+        out = []
+        for s in size:
+            for level in range(self.depth):
+                s -= 4
+                if s <= 0 or s % 2:
+                    raise ValueError("tile %s: a 2x2x2 max pool meets size %d at level %d"
+                                     % (tuple(size), s, level))
+                s //= 2
+            s -= 4
+            for _ in range(self.depth):
+                s = 2 * s - 4
+            if s <= 0:
+                raise ValueError("tile %s leaves no output" % (tuple(size),))
+            out.append(s)
+        return tuple(out)
+
+    def forward(self, x):
+        skips = []
+        for level in range(self.depth):
+            s = getattr(self, "analysis_%d" % level)(x)
+            skips.append(s)
+            x = F.max_pool3d(s, 2, 2)
+        x = getattr(self, "analysis_%d" % self.depth)(x)
+        for i, level in enumerate(reversed(range(self.depth))):
+            x = getattr(self, "upconv_%d" % i)(x)
+            x = torch.cat([x, center_crop(skips[level], x.shape[2:])], dim=1)
+            x = getattr(self, "synthesis_%d" % i)(x)
+        return torch.softmax(self.head(x).float(), dim=1)

@@ -4,7 +4,8 @@ ReLU if asked, in the compute dtype.
 
 Replaces no function of the JAX package, whose XLA fuses the same chain
 by itself. bn_epilogue is one pass of the bn_epilogue CUDA kernel
-(ops/cuda_kernels.py::bn_epilogue), for tensors on the GPU; its caller,
+(ops/cuda_kernels.py::bn_epilogue), for 4-D tensors on the GPU and 5-D
+ones as their 4-D view (the volumetric nets'); its caller,
 nn/blocks.py::conv_norm, runs the separate operations on the CPU.
 bn_epilogue_plain is those operations as one function: the reference the
 tests and chip_smoke.py hold the kernel to, and what the kernel's backward
@@ -58,8 +59,21 @@ class _BNEpilogue(torch.autograd.Function):
 def bn_epilogue(c, conv_bias, mean, var, weight, beta, eps, relu):
     """relu?(BatchNorm_eval(c + conv_bias)) in one kernel, for an (N, C, H,
     W) CUDA tensor c, contiguous NCHW or channels_last (another layout
-    raises ValueError); the per-channel arguments are (C,) float32. While
-    autograd records, the kernel's output carries the backward above."""
+    raises ValueError), or an (N, C, D, H, W) one, passed to the kernel as
+    its (N, C, D, H*W) view: contiguous NCDHW or channels_last_3d, whose
+    view is NCHW or channels_last, in which each element keeps its
+    channel (a 5-D layout with no such view raises ValueError). The
+    per-channel arguments are (C,) float32. While autograd records, the
+    kernel's output carries the backward above."""
+    if c.dim() == 5:
+        n, ch, d, h, w = c.shape
+        try:
+            c4 = c.view(n, ch, d, h * w)
+        except RuntimeError:
+            raise ValueError("bn_epilogue: an (N, C, D, H, W) c must be contiguous NCDHW or "
+                             "channels_last_3d, to be taken as its (N, C, D, H*W) view; got "
+                             "strides %s" % (c.stride(),)) from None
+        return bn_epilogue(c4, conv_bias, mean, var, weight, beta, eps, relu).view(c.shape)
     args = (c, conv_bias, mean, var, weight, beta)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _BNEpilogue.apply(*args, eps, relu)

@@ -762,6 +762,73 @@ def test_epilogue_is_not_launched_in_train_mode(cuda):
     assert cuda_kernels.launch_counts()["bn_epilogue"] == 32
 
 
+@pytest.mark.parametrize("layout", ["ncdhw", "channels_last_3d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_epilogue_on_volumes_bit_exact(cuda, dtype, layout):
+    """A 5-D (N, C, D, H, W) conv output through the epilogue as its (N, C,
+    D, H*W) view: the plain version and the module chain (the bias add,
+    BatchNorm3d in eval mode, F.relu) bit for bit, in the input's layout;
+    the 3D U-Net's level-0 and bottom shapes at batch 2, and odd sizes."""
+    from multimodal_segmentation_torch.nn.unet3d import BatchNorm3d
+
+    cases = [(2, 64, 112, 128, 128), (2, 512, 7, 9, 9), (3, 5, 7, 9, 11)]
+    with torch.no_grad():
+        for i, (N, C, D, H, W) in enumerate(cases):
+            c = (torch.randn(N, C, D, H, W, device=cuda) * 3.0).to(dtype)
+            if layout == "channels_last_3d":
+                c = c.contiguous(memory_format=torch.channels_last_3d)
+            conv = _randomise_conv_norms_(blocks.Conv2d(1, C, 1), i).to(cuda)
+            norm = _randomise_conv_norms_(BatchNorm3d(C), i + 1000).to(cuda).eval()
+            args = (conv.bias, norm.running_mean, norm.running_var, norm.weight, norm.bias,
+                    norm.eps, True)
+            got = epilogue.bn_epilogue(c, *args)
+            plain = epilogue.bn_epilogue_plain(c.view(N, C, D, H * W), *args).view(c.shape)
+            chain = F.relu(norm(c + conv.bias.to(dtype).view(1, -1, 1, 1, 1)))
+            torch.cuda.synchronize()
+            assert got.shape == c.shape and got.stride() == c.stride()
+            assert torch.equal(plain, chain), (N, C, D, H, W)
+            assert torch.equal(got, chain), (N, C, D, H, W)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unet3d_cicek_predict_on_the_card(cuda, monkeypatch, dtype):
+    """The 3D U-Net at base width 4 (92^3 input tiles, 4^3 output tiles) by
+    overlap-tile on a (6, 7, 4) volume, 2 tiles a forward: 14 epilogue
+    launches a forward; the same probabilities bit for bit with the plain
+    version in the kernel's place and with the op-by-op chain (the card
+    taken out of conv_norm's decision); within 1e-4 of the CPU's in
+    float32 (cuDNN and the CPU sum in other orders)."""
+    import types
+
+    from benchmark.reference.unet3d import MODEL
+    from benchmark.traffic import volumes
+    from multimodal_segmentation_torch.config import unet3d_cicek
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+
+    conf = dataclasses.replace(unet3d_cicek(), volume_shape=(92, 92, 92, 3), filters3d=4,
+                               batch_size=2, compute_dtype=dtype)
+    state = volumes.make_weights(MODEL, types.SimpleNamespace(**dataclasses.asdict(conf)),
+                                 {"depths": [6, 6], "hw": [7, 7], "blobs": 4}, 3, cuda)
+    v = volumes.render((6, 7, 4), 3, 4, torch.Generator().manual_seed(4), "cpu").numpy()[None]
+    seg = Cardiac3DSegmenter(conf, device=cuda)
+    net, _ = seg.init(state_dict=state)
+    cuda_kernels.reset_launch_counts()
+    got = seg.predict(net, v)
+    assert cuda_kernels.launch_counts()["bn_epilogue"] == 2 * 14
+    with monkeypatch.context() as m:
+        m.setattr(epilogue, "_bn_epilogue_cuda", epilogue.bn_epilogue_plain)
+        plain = seg.predict(net, v)
+    monkeypatch.setattr(blocks, "_on_card", lambda t: False)
+    chain = seg.predict(net, v)
+    assert got.shape == (1, 6, 7, 4, 3) and got.is_cuda
+    assert torch.equal(got, plain)
+    assert torch.equal(got, chain)
+    if dtype == "float32":
+        cpu = Cardiac3DSegmenter(conf, device="cpu")
+        ref = cpu.predict(cpu.init(state_dict={k: t.cpu() for k, t in state.items()})[0], v)
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
 # ----------------------------------------------------------- training step
 
 def _expert_batch(conf, seed=0):
