@@ -26,7 +26,10 @@ Phases, one JSON line each:
                 path, with wall times; round_ste; `bn_epilogue`: the
                 eval-mode conv epilogue at three bf16 shapes of serving,
                 bit for bit against the separate operations, with the
-                plain chain's device time too; `launch_path`: host us
+                plain chain's device time too; `thin_conv3d`: the 3D
+                U-Net's first convolution at 16 and 2 tiles in bf16
+                against its plain version and cuDNN, and one
+                published-width forward's launches; `launch_path`: host us
                 of each part of a wrapper's launch; `flow`: tps_flow_dbg
                 at the tool's shape and at B1's, the stages check of B1
                 against a plain blend at its locations, the gap to
@@ -1241,6 +1244,71 @@ def bn_epilogue_phase(torch, dev):
     return res
 
 
+THIN_TILE = (3, 116, 132, 132)
+
+
+def thin_conv3d_phase(torch, dev):
+    """The thin-input convolution (csrc/thin_conv3d.cu) at the 3D U-Net's
+    first convolution, (B, 3, 116, 132, 132) -> 32 channels in bf16, B =
+    16 (a serving forward's tiles) and 2: within one bf16 rounding of its
+    plain version (an exact sum rounded once, one sample at a time) on the
+    same inputs, timed against cuDNN's F.conv3d (the legacy kernel it
+    replaces). Its bound: x read once and the output written once (the
+    products take ~0.16 ms at the bf16 tensor-core rate). Then one
+    published-width bf16 forward of 16 tiles, the launch counts reset
+    just before it: one thin_conv3d launch and the 14 epilogues."""
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch import config
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.ops.thin_conv import thin_conv3d, thin_conv3d_plain
+
+    def plain(x, w):
+        return torch.cat([thin_conv3d_plain(x[i:i + 1], w) for i in range(x.shape[0])])
+
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = (torch.randn(32, 3, 3, 3, 3, device=dev, generator=g) * 0.157).bfloat16()
+    eps = torch.finfo(torch.bfloat16).eps
+    for B in (16, 2):
+        x = torch.rand(B, *THIN_TILE, device=dev, generator=g).bfloat16()
+        with torch.no_grad():
+            got, ref = thin_conv3d(x, w).float(), plain(x, w).float()
+            torch.cuda.synchronize()
+            gap = (got - ref).abs()
+            check(bool((gap <= eps * ref.abs() + 1e-3).all()),
+                  "thin_conv3d B=%d differs from its plain version by %g" % (B, gap.max().item()))
+            err = gap.max().item()
+            del got, ref, gap
+            out_bytes = B * 32 * 114 * 130 * 130 * 2
+            bufs = rotating(lambda: x.clone(), x.numel() * 2)
+            row = measure(bufs, lambda b: thin_conv3d(b, w), lambda b: plain(b, w),
+                          lambda b: F.conv3d(b, w), x.numel() * 2 + out_bytes, 0, plain_iters=2)
+        row["flops"] = 2 * 81 * 32 * B * 114 * 130 * 130
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        res["B=%d" % B] = {"shape": [B, *THIN_TILE], "max_abs_err": err, **row}
+        del bufs, x
+        torch.cuda.empty_cache()
+
+    net, _ = Cardiac3DSegmenter(config.unet3d_cicek(), device=dev).init(0)
+    x = torch.rand(16, *THIN_TILE, device=dev, generator=g).bfloat16()
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        net(x)
+        torch.cuda.synchronize()
+    launches = cuda_kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(bn_epilogue=14, thin_conv3d=1)
+    check(launches == want, "unet3d forward launches %s != %s" % (launches, want))
+    res["forward"] = {"tiles": 16, "dtype": "bfloat16", "launches": launches}
+    del net, x
+    torch.cuda.empty_cache()
+    return res
+
+
 def launch_path_phase(torch, dev):
     """Host us a call of each part of a wrapper's launch path, on
     round_ste at the training shape (12, 8, 192, 192) f32: the
@@ -1568,7 +1636,7 @@ STEP_LAUNCHES = {
     "mmsdnet_disc": {"tps_warp_fwd": 1, "tps_warp_bwd": 0, "nearest_warp": 2, "round_ste": 2},
 }
 KERNEL_NAMES = ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste", "tps_flow_dbg",
-                "bn_epilogue")
+                "bn_epilogue", "thin_conv3d")
 
 
 def epilogues(conf):
@@ -1803,7 +1871,8 @@ def lockstep_phase(torch, device):
         n = 2 * LOCKSTEP_STEPS
         want = {"tps_warp_fwd": 2 * n, "tps_warp_bwd": n, "nearest_warp": 3 * n,
                 "round_ste": 2 * n, "tps_flow_dbg": 0,
-                "bn_epilogue": n * epilogues(config.tiny_test_config("dafnet"))["dafnet_step"]}
+                "bn_epilogue": n * epilogues(config.tiny_test_config("dafnet"))["dafnet_step"],
+                "thin_conv3d": 0}
         check(launches == want, "lockstep launches %s != %s" % (launches, want))
     return {"config": "tiny", "device": str(device), "steps": LOCKSTEP_STEPS, "seconds": seconds,
             "max_rel_divergence": float(rel.max()), "mean_rel_divergence": float(rel.mean()),
@@ -3579,6 +3648,7 @@ def main(argv=None):
         "rotation_auto": rotation_auto_phase(torch, dev),
         "round_ste": round_ste_phase(torch, dev),
         "bn_epilogue": bn_epilogue_phase(torch, dev),
+        "thin_conv3d": thin_conv3d_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
         "flow": flow_phase(torch, dev),
         "nearest_warp_3d": nearest_warp_3d_phase(torch, dev),
@@ -3686,6 +3756,7 @@ def main(argv=None):
              "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
                                for n in exp3d["launches"]},
              "warp-general": kern["warp_general"]["launches"],
+             "unet3d-forward": kern["thin_conv3d"]["forward"]["launches"],
              **{"train-mmsdnet-remat-" + k: v["launches"] for k, v in remat.items()},
              "fused-adam": dp["fused-adam"]["launches"],
              "train-tp": _summed(r["launches"] for r in dp["train-tp"]["per_rank"]),
@@ -3710,6 +3781,7 @@ def main(argv=None):
         "tps_flow_dbg": {},
         "bn_epilogue": {key: row for key, row in kern["bn_epilogue"].items()
                         if key != "76x64x192x192_bfloat16"},
+        "thin_conv3d": {"(2, 3, 116, 132, 132) bfloat16": kern["thin_conv3d"]["B=2"]},
     }
     summary = []
     for name, source, replaces, k, work in (
@@ -3727,7 +3799,10 @@ def main(argv=None):
              "stage at its inference shape"),
             ("bn_epilogue", "bn_epilogue.cu", "none: XLA fuses the chain in the JAX package",
              kern["bn_epilogue"]["76x64x192x192_bfloat16"], "(76, 64, 192, 192) bfloat16, "
-             "ReLU on: the up path's last level of a 38-slice study in serving")):
+             "ReLU on: the up path's last level of a 38-slice study in serving"),
+            ("thin_conv3d", "thin_conv3d.cu", "none: cuDNN has only a legacy kernel for 3 "
+             "input channels", kern["thin_conv3d"]["B=16"], "(16, 3, 116, 132, 132) -> 32 "
+             "bfloat16: the 3D U-Net's first convolution on a serving forward's tiles")):
         summary.append({
             "name": name,
             "route": "cuda",

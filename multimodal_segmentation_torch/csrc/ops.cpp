@@ -2,9 +2,10 @@
 // registered with TORCH_LIBRARY for the CUDA dispatch key.
 //
 // Each kernel source (tps_warp.cu, tps_warp_bwd.cu, nearest_warp.cu,
-// round_ste.cu, tps_flow_dbg.cu, bn_epilogue.cu) keeps a plain C entry
-// point; this file checks the tensors, allocates the outputs with the
-// caching allocator and calls the entry point, in one call from Python.
+// round_ste.cu, tps_flow_dbg.cu, bn_epilogue.cu, thin_conv3d.cu) keeps a
+// plain C entry point; this file checks the tensors, allocates the outputs
+// with the caching allocator and calls the entry point, in one call from
+// Python.
 // The checks raise ValueError (TORCH_CHECK_VALUE); a launch error raises
 // RuntimeError. The stream is the raw handle of the caller's current
 // stream on the tensors' device, passed in as an int, so this file needs
@@ -45,6 +46,8 @@ int tps_flow_dbg(const void* wv, const void* cp, void* out, int B, int H, int W,
 int bn_epilogue(const void* c, void* y, long long n, int inner, int C, const void* cbias,
                 const void* mean, const void* var, const void* weight, const void* beta,
                 float eps, int relu, int elem_bytes, void* stream);
+int thin_conv3d(const void* x, const void* wp, void* y, int N, int C, int D, int H, int W,
+                int K, void* stream);
 }
 
 namespace {
@@ -286,6 +289,40 @@ at::Tensor op_bn_epilogue(const at::Tensor& c, const at::Tensor& cbias,
   return out;
 }
 
+// x: (N, C, D, H, W) contiguous bfloat16, 1 <= C <= 4, D, H >= 3, W >= 4
+// and even, 4-byte aligned; wp: (ceil(K / 32) * 32, ceil(C * 27 / 16) *
+// 16) contiguous bfloat16 on x's device, the (K, C * 27) weights
+// zero-padded. The output, (N, K, D - 2, H - 2, W - 2), contiguous
+// bfloat16.
+at::Tensor op_thin_conv3d(const at::Tensor& x, const at::Tensor& wp, int64_t K,
+                          int64_t stream) {
+  const char* name = "thin_conv3d";
+  TORCH_CHECK_VALUE(x.is_cuda(), name, ": x must be a CUDA tensor, got ", x.device());
+  TORCH_CHECK_VALUE(x.scalar_type() == at::kBFloat16, name, ": x must be bfloat16, got ",
+                    x.scalar_type());
+  TORCH_CHECK_VALUE(x.dim() == 5 && x.is_contiguous(), name,
+                    ": x must be a contiguous (N, C, D, H, W), got ", x.sizes(), " strides ",
+                    x.strides());
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(x.data_ptr()) % 4 == 0, name,
+                    ": x must be 4-byte aligned");
+  const int64_t N = x.size(0), C = x.size(1), D = x.size(2), H = x.size(3), W = x.size(4);
+  TORCH_CHECK_VALUE(N >= 1 && C >= 1 && C <= 4 && D >= 3 && H >= 3 && W >= 4 && W % 2 == 0 &&
+                        C * D * H * W <= INT32_MAX && N <= INT32_MAX,
+                    name, ": unsupported x shape ", x.sizes());
+  TORCH_CHECK_VALUE(K >= 1 && K <= INT32_MAX, name, ": unsupported K ", K);
+  const int64_t rows = (K + 31) / 32 * 32, taps = (C * 27 + 15) / 16 * 16;
+  TORCH_CHECK_VALUE(wp.device() == x.device() && wp.scalar_type() == x.scalar_type() &&
+                        wp.sizes() == at::IntArrayRef({rows, taps}) && wp.is_contiguous(),
+                    name, ": wp must be a contiguous (", rows, ", ", taps, ") ",
+                    x.scalar_type(), " on ", x.device(), ", got ", wp.sizes(), " ",
+                    wp.scalar_type(), " on ", wp.device());
+  at::Tensor out = at::empty({N, K, D - 2, H - 2, W - 2}, x.options());
+  launched(thin_conv3d(x.data_ptr(), wp.data_ptr(), out.data_ptr(), i32(N), i32(C), i32(D),
+                       i32(H), i32(W), i32(K), stream_of(stream)),
+           name);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(mmseg_cuda, m) {
@@ -301,6 +338,7 @@ TORCH_LIBRARY(mmseg_cuda, m) {
   m.def(
       "bn_epilogue(Tensor c, Tensor cbias, Tensor mean, Tensor var, Tensor weight, "
       "Tensor beta, float eps, bool relu, int stream) -> Tensor");
+  m.def("thin_conv3d(Tensor x, Tensor wp, int K, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
@@ -312,4 +350,5 @@ TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
   m.impl("round_ste", &op_round_ste);
   m.impl("tps_flow_dbg", &op_tps_flow_dbg);
   m.impl("bn_epilogue", &op_bn_epilogue);
+  m.impl("thin_conv3d", &op_thin_conv3d);
 }

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_segmentation_torch.nn.blocks import BatchNorm, _fan, _variance_scaling_, conv_norm
+from multimodal_segmentation_torch.ops.thin_conv import MAX_CHANNELS, thin_conv3d
 from multimodal_segmentation_torch.parallel.collectives import all_reduce_sum
 from multimodal_segmentation_torch.parallel.halo import sharded_conv
 
@@ -171,10 +172,25 @@ class UNet3D(nn.Module):
         return torch.softmax(x.float(), dim=1).permute(0, 2, 3, 4, 1)
 
 
+def _thin_input(x, dt):
+    """Whether a valid 3x3x3 convolution of x, computing in dt, runs as the
+    thin-input convolution (ops/thin_conv.py, an implicit GEMM on the
+    tensor cores): bf16 on the card, at most MAX_CHANNELS input channels
+    and an even width, where cuDNN has no fast kernel (PERF.md). Not in
+    float32, which has no tensor cores to reach with TF32 off, nor on the
+    CPU; fp16 is no configuration's compute dtype. On the card
+    `cuda_kernels.launch_counts()["thin_conv3d"]` counts the calls: 1 a
+    bf16 UNet3DCicek forward (its 3-channel first convolution)."""
+    return (x.is_cuda and dt == torch.bfloat16 and x.shape[1] <= MAX_CHANNELS
+            and x.shape[-1] % 2 == 0)
+
+
 class ValidConv3d(Conv3d):
     """A cubic Conv3d with 'VALID' padding (no padding: each side of the
     output is k - 1 shorter than the input's). `with_bias=False` leaves
-    out the bias, for conv_norm's epilogue, which adds it."""
+    out the bias, for conv_norm's epilogue, which adds it. A 3x3x3 one of
+    an input that `_thin_input` takes runs as the thin-input convolution,
+    and the bias is added after it as PyTorch adds cuDNN's."""
 
     def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None):
         super().__init__(in_ch, out_ch, k, init=init, dtype=dtype)
@@ -183,7 +199,11 @@ class ValidConv3d(Conv3d):
     def forward(self, x, with_bias=True):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = self.bias.to(dt) if with_bias else None
-        return F.conv3d(x.to(dt), self.weight.to(dt), bias)
+        x, weight = x.to(dt), self.weight.to(dt)
+        if self.kernel_size != (3, 3, 3) or not _thin_input(x, dt):
+            return F.conv3d(x, weight, bias)
+        y = thin_conv3d(x, weight)
+        return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
 
 
 class UpConv3d(nn.ConvTranspose3d):

@@ -27,8 +27,8 @@ current stream without synchronising and adds one to its kernel's
 imported, so it imports on a machine without CUDA.
 
 The wrappers take CUDA tensors only; their callers (ops/tps.py,
-ops/augment.py, ops/rounding.py, nn/blocks.py::conv_norm) run the plain
-PyTorch versions for tensors on the CPU.
+ops/augment.py, ops/rounding.py, nn/blocks.py::conv_norm, ops/thin_conv.py)
+run the plain PyTorch versions for tensors on the CPU.
 """
 
 import os
@@ -86,7 +86,9 @@ NEAREST_WARP = Kernel("nearest_warp", "nearest_warp.cu", ("nearest_warp", "rotat
 ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
 TPS_FLOW_DBG = Kernel("tps_flow_dbg", "tps_flow_dbg.cu", ("tps_flow_dbg",))
 BN_EPILOGUE = Kernel("bn_epilogue", "bn_epilogue.cu", ("bn_epilogue",))
-KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG, BN_EPILOGUE)
+THIN_CONV3D = Kernel("thin_conv3d", "thin_conv3d.cu", ("thin_conv3d",))
+KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG, BN_EPILOGUE,
+           THIN_CONV3D)
 _lock = threading.Lock()
 
 
@@ -388,3 +390,26 @@ def bn_epilogue(c, conv_bias, mean, var, weight, beta, eps, relu):
     _cuda(c, "bn_epilogue", "c")
     return _launch(BN_EPILOGUE, "bn_epilogue", c, c, conv_bias, mean, var, weight, beta,
                    float(eps), bool(relu))
+
+
+def thin_conv3d(x, wp, K):
+    """A valid 3x3x3 convolution, stride 1, of a bf16 input with 1-4
+    channels on the GPU (csrc/thin_conv3d.cu): an implicit GEMM on the
+    tensor cores, summed in f32 and rounded once, no bias (its plain
+    version and the weights' packing: ops/thin_conv.py). Replaces no TPU
+    kernel. Memory-bound: the output is written once (1.97 GB for 16 tiles
+    of the 3D U-Net's first convolution, 3 -> 32 channels).
+
+    Args:
+      x: (N, C, D, H, W) contiguous bfloat16 CUDA tensor, 4-byte aligned,
+        1 <= C <= 4, D and H at least 3, W at least 4 and even.
+      wp: (ceil(K / 32) * 32, ceil(C * 27 / 16) * 16) contiguous bfloat16:
+        the (K, C, 3, 3, 3) weights as (K, C * 27), zero-padded
+        (ops/thin_conv.py::pack_weight).
+      K: the output channels.
+
+    Returns:
+      (N, K, D - 2, H - 2, W - 2) bfloat16, contiguous.
+    """
+    _cuda(x, "thin_conv3d", "x")
+    return _launch(THIN_CONV3D, "thin_conv3d", x, x, wp, int(K))

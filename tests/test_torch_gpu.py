@@ -24,7 +24,7 @@ from multimodal_segmentation_torch.config import (
 )
 from multimodal_segmentation_torch.models import build_model
 from multimodal_segmentation_torch.nn import blocks
-from multimodal_segmentation_torch.ops import augment, cuda_kernels, epilogue, tps
+from multimodal_segmentation_torch.ops import augment, cuda_kernels, epilogue, thin_conv, tps
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
 from multimodal_segmentation_torch.train import (
     DAFNetSteps,
@@ -829,6 +829,167 @@ def test_unet3d_cicek_predict_on_the_card(cuda, monkeypatch, dtype):
         assert (got.cpu() - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("N, C, K, D, H, W, aligned", [
+    (2, 3, 32, 12, 13, 14, True), (1, 1, 4, 3, 3, 4, True), (3, 4, 40, 9, 10, 12, True),
+    (2, 2, 3, 6, 20, 8, True), (2, 3, 4, 92, 92, 92, True), (1, 2, 64, 5, 34, 34, True),
+    (2, 4, 8, 5, 9, 10, True), (1, 1, 70, 4, 7, 8, True), (2, 3, 32, 12, 13, 14, False),
+])
+def test_thin_conv3d_kernel_matches_plain(cuda, N, C, K, D, H, W, aligned):
+    """The thin-input convolution kernel against its plain version (an
+    exact sum rounded once) and against cuDNN's F.conv3d, in bf16 on 1-4
+    input channels (each instantiation), 3-70 output channels (one and
+    three blocks of 32), tiles that do and do not end a sample, an input
+    that is not 4-byte aligned (the wrapper copies it) and the
+    base-width-4 U-Net's tile: every output within one rounding of either
+    (the kernel sums in f32); one launch a call."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(C * 100 + K)
+    x = torch.randn(N, C, D, H, W, device=cuda, generator=g).to(dtype)
+    if not aligned:
+        x = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape).copy_(x)
+        assert x.data_ptr() % 4
+    w = (torch.randn(K, C, 3, 3, 3, device=cuda, generator=g) * 0.2).to(dtype)
+    cuda_kernels.reset_launch_counts()
+    got = thin_conv.thin_conv3d(x, w)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["thin_conv3d"] == 1
+    assert got.shape == (N, K, D - 2, H - 2, W - 2) and got.dtype == dtype
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    eps = torch.finfo(dtype).eps
+    for ref in (thin_conv.thin_conv3d_plain(x, w), F.conv3d(x, w)):
+        gap = (got.float() - ref.float()).abs()
+        assert (gap <= eps * ref.float().abs() + 1e-3).all(), gap.max().item()
+
+
+def test_thin_conv3d_refuses_what_it_is_not_built_for(cuda):
+    """The operator raises ValueError for what no instantiation serves:
+    fp16, 5 input channels, an odd width, an input not 4-byte aligned; and
+    the U-Net's decision sends each of those to cuDNN."""
+    from multimodal_segmentation_torch.nn import unet3d
+
+    def case(dtype=torch.bfloat16, C=3, W=10, offset=0):
+        x = torch.zeros(2 * C * 5 * 6 * W + offset, device=cuda, dtype=dtype)
+        return x[offset:].view(2, C, 5, 6, W), thin_conv.pack_weight(
+            torch.zeros(8, C, 3, 3, 3, device=cuda, dtype=dtype))
+
+    x, wp = case()
+    assert cuda_kernels.thin_conv3d(x, wp, 8).shape == (2, 8, 3, 4, 8)
+    assert unet3d._thin_input(x, x.dtype)
+    for kw in ({"dtype": torch.float16}, {"C": 5}, {"W": 11}, {"offset": 1}):
+        x, wp = case(**kw)
+        with pytest.raises(ValueError, match="thin_conv3d"):
+            cuda_kernels.thin_conv3d(x, wp, 8)
+        if "offset" not in kw:
+            assert not unet3d._thin_input(x, x.dtype)
+
+
+def test_thin_conv3d_gradients_on_the_card(cuda):
+    """While autograd records, the kernel's output carries the
+    convolution's backward: the bf16 input and weight gradients through
+    the thin-input path equal those through F.conv3d (the same cuDNN
+    backward of the same incoming gradient, so within one bf16 rounding
+    of each other), at the first level of the base-width-4 U-Net."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x0 = torch.randn(2, 3, 20, 22, 24, device=cuda, generator=g).bfloat16()
+    w0 = (torch.randn(4, 3, 3, 3, 3, device=cuda, generator=g) * 0.2).bfloat16()
+    gy = torch.randn(2, 4, 18, 20, 22, device=cuda, generator=g).bfloat16()
+    got, ref = [], []
+    for conv, out in ((thin_conv.thin_conv3d, got), (F.conv3d, ref)):
+        x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+        conv(x, w).backward(gy)
+        out += [x.grad, w.grad]
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16
+        gap = (a.float() - b.float()).abs()
+        assert (gap <= 2 * torch.finfo(torch.bfloat16).eps * b.float().abs() + 1e-2).all(), \
+            gap.max().item()
+
+
+_THIN_PROFILE = r"""
+import json, torch
+from torch.profiler import ProfilerActivity, profile
+from multimodal_segmentation_torch import config
+from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+from multimodal_segmentation_torch.ops import cuda_kernels
+torch.backends.cudnn.allow_tf32 = False
+net, _ = Cardiac3DSegmenter(config.unet3d_cicek(), device="cuda").init(0)
+x = torch.rand(2, 3, 116, 132, 132, device="cuda").bfloat16()
+with torch.inference_mode():
+    net(x)
+    cuda_kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net(x)
+        torch.cuda.synchronize()
+print(json.dumps({"count": cuda_kernels.launch_counts()["thin_conv3d"],
+                  "names": [e.key for e in prof.key_averages() if e.device_time_total > 0]}))
+"""
+
+
+def test_unet3d_first_conv_takes_the_thin_kernel(cuda, monkeypatch):
+    """One bf16 forward of the published-width 3D U-Net on 2 tiles of 132 x
+    132 x 116. Under torch.profiler, in a process of its own: run in this
+    process, that profiling session left test_program_spans_on_the_device_
+    traces_clock's later one with no device activity when the whole file
+    ran. Any CUDA-only profiling session at that point does so: with the
+    thin-input path taken out, one F.conv3d or one bf16 matmul in its
+    place (PERF.md), so the kernel is not the cause. There the
+    first convolution runs as the thin-input kernel, no kernel is cuDNN's
+    legacy implicit_convolveNd_sgemm, one launch. Here, with the benchmark
+    maker's weights: one launch, none with the path taken out; the
+    probabilities' mean gap from the same forward through cuDNN (the
+    thin-input path taken out) no larger than that forward's own gap from
+    the float32 net's."""
+    import json
+    import subprocess
+    import sys
+    import types
+
+    from benchmark.reference.unet3d import MODEL
+    from benchmark.traffic import volumes
+    from multimodal_segmentation_torch.config import unet3d_cicek
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.nn import unet3d
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _THIN_PROFILE], cwd=repo, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    profiled = json.loads(run.stdout.splitlines()[-1])
+    assert profiled["count"] == 1
+    names = profiled["names"]
+    assert not any("implicit_convolveNd_sgemm" in n for n in names), names
+    assert any("thin_conv3d_kernel" in n for n in names), names
+
+    conf = unet3d_cicek()
+    state = volumes.make_weights(MODEL, types.SimpleNamespace(**dataclasses.asdict(conf)),
+                                 {"depths": [56, 56], "hw": [240, 240], "blobs": 6}, 5, cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.stack([volumes.render((116, 132, 132), 3, 6, g, cuda).permute(3, 0, 1, 2)
+                     for _ in range(2)])
+    net, _ = Cardiac3DSegmenter(conf, device=cuda).init(state_dict=state)
+    f32 = dataclasses.replace(conf, compute_dtype="float32")
+    net32, _ = Cardiac3DSegmenter(f32, device=cuda).init(state_dict=state)
+    with torch.inference_mode():
+        cuda_kernels.reset_launch_counts()
+        got = net(x.bfloat16())
+        torch.cuda.synchronize()
+        assert cuda_kernels.launch_counts()["thin_conv3d"] == 1
+        monkeypatch.setattr(unet3d, "_thin_input", lambda x, dt: False)
+        ref = net(x.bfloat16())
+        ref32 = net32(x)
+        torch.cuda.synchronize()
+        assert cuda_kernels.launch_counts()["thin_conv3d"] == 1
+    # the published widths leave GBs in the caching allocator; give them back
+    del net, net32, state, x
+    torch.cuda.empty_cache()
+    assert got.shape == (2, 3, 28, 44, 44)
+    gap = (got - ref).abs().mean().item()
+    rounding = (ref - ref32).abs().mean().item()
+    print("thin vs cuDNN: mean %.3g max %.3g; cuDNN bf16 vs f32: mean %.3g"
+          % (gap, (got - ref).abs().max().item(), rounding))
+    assert gap <= rounding
+
+
 # ----------------------------------------------------------- training step
 
 def _expert_batch(conf, seed=0):
@@ -863,7 +1024,7 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
 
@@ -887,7 +1048,7 @@ def test_full_width_bf16_train_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
     assert dtypes == [torch.bfloat16, torch.bfloat16]
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
     state = [*model.parameters(), *model.buffers()]
@@ -899,7 +1060,8 @@ def test_full_width_bf16_train_step_runs_through_the_kernels(cuda, monkeypatch):
 def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     """One tiny executor epoch (3 steps, validation, image callback,
     checkpoint) on the card: every kernel of the path launches, B4 among
-    them (the flow-stage dump B5 is on no training path), and
+    them (the flow-stage dump B5 is on no training path, the 3D U-Net's
+    thin-input convolution on no 2-D path), and
     after the first step, which copies ops/tps.py's constants to the card
     once, no CPU tensor of more than one element enters any operation of a
     step (0-d ones are Python scalars and Adam's step counts)."""
@@ -939,6 +1101,7 @@ def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     launches = cuda_kernels.launch_counts()
     assert ts.step == 3 and ts.epoch == 0
     assert launches.pop("tps_flow_dbg") == 0
+    assert launches.pop("thin_conv3d") == 0
     assert all(n > 0 for n in launches.values()), launches
     assert launches["round_ste"] >= 2 * 3 + 6   # 3 steps, 6 validation predictions
     assert on_cpu == []
@@ -1106,7 +1269,7 @@ def test_full_width_automated_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
     assert batches == [36, 12]
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert any(not torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
@@ -1135,7 +1298,8 @@ def test_full_width_mmsdnet_steps_run_through_the_kernels(cuda, dtype):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 3, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 6,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 44 + 46}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 44 + 46,
+                                            "thin_conv3d": 0}
     metrics.update(d_metrics)
     assert sorted(metrics) == ["KL", "adv_M", "dis_M", "loss", "rec_X", "rec_Z",
                                "supervised_Mask"]
@@ -1331,7 +1495,7 @@ def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
     for k, _ in model.named_parameters():
         assert (sd1[k] - sd0[k]).abs().max().item() <= 2.001 * 4 * lr, k
     assert l0 == l1 == {"tps_warp_fwd": 4, "tps_warp_bwd": 2, "nearest_warp": 6, "round_ste": 4,
-                        "tps_flow_dbg": 0, "bn_epilogue": 2 * 18}
+                        "tps_flow_dbg": 0, "bn_epilogue": 2 * 18, "thin_conv3d": 0}
 
 
 # ------------------------------------------ B1's general entry, tensor parallelism

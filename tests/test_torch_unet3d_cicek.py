@@ -26,9 +26,14 @@ from benchmark.reference.precision import set_precision
 from benchmark.traffic import volumes
 from multimodal_segmentation_torch import config
 from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter, mirror_index
-from multimodal_segmentation_torch.nn import blocks
-from multimodal_segmentation_torch.nn.unet3d import BatchNorm3d, UNet3DCicek, ValidBlock3D
-from multimodal_segmentation_torch.ops import epilogue
+from multimodal_segmentation_torch.nn import blocks, unet3d
+from multimodal_segmentation_torch.nn.unet3d import (
+    BatchNorm3d,
+    UNet3DCicek,
+    ValidBlock3D,
+    ValidConv3d,
+)
+from multimodal_segmentation_torch.ops import epilogue, thin_conv
 from multimodal_segmentation_torch.utils import tracing
 
 torch.set_num_threads(1)
@@ -252,3 +257,150 @@ def test_volumetric_blocks_through_the_epilogue_path(monkeypatch, dtype):
     with pytest.raises(ValueError, match="channels_last_3d"):
         c = torch.zeros(2, 4, 3, 6, 5)[..., :4]
         epilogue.bn_epilogue(c, *([torch.zeros(4)] * 5), 1e-3, True)
+
+
+@pytest.mark.parametrize("channels, dtype, on_card, width, takes", [
+    (1, torch.bfloat16, True, 132, True), (2, torch.bfloat16, True, 132, True),
+    (3, torch.bfloat16, True, 132, True), (4, torch.bfloat16, True, 6, True),
+    (5, torch.bfloat16, True, 132, False), (8, torch.bfloat16, True, 132, False),
+    (32, torch.bfloat16, True, 132, False), (768, torch.bfloat16, True, 132, False),
+    (3, torch.float16, True, 132, False), (3, torch.float32, True, 132, False),
+    (3, torch.bfloat16, False, 132, False), (3, torch.bfloat16, True, 131, False),
+])
+def test_thin_input_decision(channels, dtype, on_card, width, takes):
+    """The thin-input convolution takes bf16 inputs on the card with 1-4
+    channels and an even width (what the kernel is built for: the
+    published net's 3 channels and its base-width-4 cut's 4), and nothing
+    in fp16 (no configuration's), float32 or on the CPU: the decision
+    reads only the input's device, channels and width and the compute
+    dtype (a stand-in for a card's tensor here)."""
+    x = types.SimpleNamespace(is_cuda=on_card, shape=(2, channels, 5, 5, width))
+    assert unet3d._thin_input(x, dtype) is takes
+
+
+def _forced_thin(monkeypatch):
+    """Decide as on the card in bf16, whatever the device and dtype: every
+    valid 3x3x3 convolution the kernel is built for takes the thin-input
+    path, which on the CPU runs the kernel's plain version. Returns the
+    list of calls that took it (on the card, launch_counts() counts
+    them)."""
+    calls = []
+
+    def counted(x, weight):
+        calls.append(tuple(x.shape))
+        return thin_conv.thin_conv3d(x, weight)
+
+    monkeypatch.setattr(unet3d, "_thin_input", lambda x, dt: (
+        x.shape[1] <= thin_conv.MAX_CHANNELS and x.shape[-1] % 2 == 0))
+    monkeypatch.setattr(unet3d, "thin_conv3d", counted)
+    return calls
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_valid_conv_through_the_thin_path_equals_the_convolution(monkeypatch, with_bias):
+    """A (2, 3, 12, 12, 12) input through ValidConv3d, the thin-input path
+    forced on: the unpadded convolution (in float64) within 1e-6 in
+    float32 (the plain version rounds the zero-padded taps' float64 sum
+    once, then adds the bias in float32); one call of the path."""
+    conv = ValidConv3d(3, 32, 3)
+    conv.flax_init_(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        conv.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    x = torch.from_numpy(np.random.RandomState(2).uniform(-1, 1, (2, 3, 12, 12, 12))
+                         .astype(np.float32))
+    with torch.no_grad():
+        bias = conv.bias.double() if with_bias else None
+        ref = torch.nn.functional.conv3d(x.double(), conv.weight.double(), bias).float()
+        calls = _forced_thin(monkeypatch)
+        got = conv(x, with_bias)
+    assert calls == [(2, 3, 12, 12, 12)]
+    assert got.shape == ref.shape == (2, 32, 10, 10, 10)
+    assert (got - ref).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_valid_conv_gradients_through_the_thin_path(monkeypatch, with_bias):
+    """While autograd records, the thin-input path's output carries the
+    convolution's backward: ValidConv3d's weight, bias and input gradients
+    through the path forced on equal F.conv3d's within 1e-5 in float32."""
+    conv = ValidConv3d(3, 8, 3)
+    conv.flax_init_(torch.Generator().manual_seed(3))
+    x = torch.from_numpy(np.random.RandomState(4).uniform(-1, 1, (2, 3, 7, 6, 8))
+                         .astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(5).normal(0, 1, (2, 8, 5, 4, 6))
+                         .astype(np.float32))
+
+    def grads():
+        xi = x.clone().requires_grad_(True)
+        conv.zero_grad()
+        conv(xi, with_bias).backward(g)
+        return [xi.grad, conv.weight.grad] + ([conv.bias.grad] if with_bias else [])
+
+    ref = grads()
+    calls = _forced_thin(monkeypatch)
+    got = grads()
+    assert calls == [(2, 3, 7, 6, 8)]
+    for a, b in zip(got, ref):
+        assert a is not None and a.shape == b.shape
+        assert (a - b).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("channels, out_channels", [(1, 4), (2, 33), (3, 32), (4, 8), (4, 70)])
+def test_thin_conv_plain_is_the_convolution(channels, out_channels):
+    """The kernel's plain version against F.conv3d: within f32's round-off
+    in float32; its packed weights zero past (K, C * 27), rows a multiple
+    of 32 and taps of 16."""
+    r = np.random.RandomState(channels * 100 + out_channels)
+    x = torch.from_numpy(r.uniform(-1, 1, (2, channels, 5, 7, 6)).astype(np.float32))
+    w = torch.from_numpy(r.normal(0, 0.2, (out_channels, channels, 3, 3, 3)).astype(np.float32))
+    got = thin_conv.thin_conv3d(x, w)
+    assert got.shape == (2, out_channels, 3, 5, 4) and got.is_contiguous()
+    assert (got - torch.nn.functional.conv3d(x, w)).abs().max().item() <= 1e-5
+    wp = thin_conv.pack_weight(w)
+    taps = channels * 27
+    assert wp.shape == (-(-out_channels // 32) * 32, -(-taps // 16) * 16)
+    assert torch.equal(wp[:out_channels, :taps], w.reshape(out_channels, taps))
+    assert not wp[out_channels:].any() and not wp[:, taps:].any()
+
+
+def test_predict_through_the_thin_path_equals_predict(monkeypatch):
+    """The base-width-4 net's predict on a (6, 7, 4) volume (4 tiles, 2
+    forwards) with the thin-input path forced on equals predict without it
+    within 1e-4 in float32, as the overlap-tile test holds the same net
+    (the plain version rounds an exact sum, F.conv3d a float32 one, and
+    the narrow net magnifies that round-off: 1.7e-5 here); the path runs
+    twice a forward (at base width 4 the first level's two convolutions
+    have 3 and 4 input channels; at the published widths only the first,
+    3), and not at all when it is off. The parameters and buffers keep
+    their keys and shapes."""
+    conf, state, v = _case((6, 7, 4), seed=51)
+    seg, net = _program(conf, state)
+    shapes = {k: t.shape for k, t in net.state_dict().items()}
+    ref = seg.predict(net, v)
+    calls = _forced_thin(monkeypatch)
+    got = seg.predict(net, v)
+    assert [c[1] for c in calls] == [3, 4] * 2
+    assert (got - ref).abs().max().item() <= 1e-4
+    assert {k: t.shape for k, t in net.state_dict().items()} == shapes
+    assert shapes["analysis_0.conv_0.weight"] == (4, 3, 3, 3, 3)
+    monkeypatch.undo()
+    calls = _forced_thin(monkeypatch)
+    monkeypatch.setattr(unet3d, "_thin_input", lambda x, dt: False)
+    seg.predict(net, v)
+    assert calls == []
+
+
+def test_thin_path_keeps_the_published_state_dict(monkeypatch):
+    """At the published widths (meta tensors) the thin-input path adds no
+    parameter or buffer: the first convolution's weight stays (32, 3, 3,
+    3, 3) and the convolutions 19,069,955 parameters, after a forward."""
+    calls = _forced_thin(monkeypatch)
+    with torch.device("meta"):
+        net = UNet3DCicek(in_channels=3, filters=32, depth=3, out_channels=3).eval()
+        before = {k: t.shape for k, t in net.state_dict().items()}
+        with torch.no_grad():
+            net.analysis_0.conv_0(torch.zeros(2, 3, 12, 12, 12))
+    assert len(calls) == 1
+    assert {k: t.shape for k, t in net.state_dict().items()} == before
+    assert before["analysis_0.conv_0.weight"] == (32, 3, 3, 3, 3)
+    assert sum(p.numel() for n, p in net.named_parameters() if ".bn_" not in n) == 19_069_955
