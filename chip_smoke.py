@@ -119,12 +119,11 @@ Phases, one JSON line each:
                 (16, 128, 128, 3), widths 16-128), f32 and bf16, on the
                 cardiac loader's split-0 training studies: losses, ms per
                 step, studies/s, exactly 2 nearest_warp launches a step and
-                no other kernel, peak memory, every parameter moved, the
-                rotated masks {0,1}, a profiler window by kind
+                no other kernel, peak memory, every parameter moved, a
+                profiler window by kind
   train-3d-cross-device
-                one tiny 3-D step on the card and on the CPU, same weights,
-                batch and angles: the loss and every gradient leaf within
-                1e-3 (the CPU on the card's ReLU branch at kinks)
+                the tiny 3-D config's first batch rotated on the card and on
+                the CPU with the same angles: bit for bit equal
   experiment-3d the CLI on cardiac_3d_config, 2 epochs, then --test: seconds
                 per epoch, validation and test Dice, the artifacts, the
                 restored Dice within 1e-6, launches
@@ -169,15 +168,20 @@ Phases, one JSON line each:
                 training.csv within 1e-3 (or 10 times the rerun's gap), the
                 stop, the SWA weights, one set of files, exact launches
 
-Then nvidia-smi's name/power line, the kernels summary and, last, the result
-line. Any failed check raises, and the script exits non-zero without a
-result line; so it does without a CUDA device, or outside the repository.
+On the card every line after env carries `card`, nvidia-smi's name and
+power limit. Then a `total` line, nvidia-smi's line, the kernels summary
+and, last, the result line. Any failed check raises, and the script exits
+non-zero without a result line; so it does without a CUDA device, or
+outside the repository. The checks that tests/test_torch_gpu.py makes on
+the card are not made here again; the phases are listed once, in
+phase_table.
 
   python3 chip_smoke.py                  # needs one CUDA device
-  python3 chip_smoke.py --cpu-rehearsal  # every phase but env, build and
-                                         # kernels at the tiny config on the
-                                         # CPU with the plain versions; no
-                                         # result line
+  python3 chip_smoke.py --cpu-rehearsal  # every phase but env, build,
+                                         # kernels and dp-kernels, in the
+                                         # card run's order, at the tiny
+                                         # config on the CPU with the plain
+                                         # versions; no result line
   python3 chip_smoke.py --profile-train  # only a torch.profiler window over
                                          # full-width train steps on the card:
                                          # device time by kernel and by kind,
@@ -200,12 +204,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chip_smoke_out")
-
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
-# f32 and f64 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-F64_FLOPS = 34e12
 
 # seeded weights that make inference exercise the warp: a sharper anatomy
 # head (at init every softmax channel is < 0.5 and the rounded anatomy is
@@ -378,19 +376,43 @@ def rotating(tensors_fn, nbytes, floor=160 * 2 ** 20):
     return [tensors_fn() for _ in range(max(2, -(-floor // nbytes)))]
 
 
-def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10, f64_flops=0):
+def call_bound(entry, *inputs):
+    """The bound of one call of the port's operator `entry` on `inputs` (as
+    its profiler record lists them), by the benchmark's count
+    (benchmark/flops/kernels.py::call_bound_s): {"bound_ms": ...}."""
+    from benchmark.flops import kernels
+
+    names = {"torch.float32": "float", "torch.bfloat16": "c10::BFloat16"}
+    s = kernels.call_bound_s("mmseg_cuda::" + entry, [tuple(t.shape) for t in inputs],
+                             [names[str(inputs[0].dtype)]])
+    return {"bound_ms": 1e3 * s}
+
+
+def work_bound(moved, flops, f64_flops=0):
+    """The bound of work that benchmark/flops/kernels.py does not count: the
+    larger of `moved` bytes over the HBM rate and the operations' time,
+    `flops` over the f32 rate plus `f64_flops` over the f64 rate
+    (benchmark/flops/peaks.py)."""
+    from benchmark.flops import peaks
+
+    t_bytes = moved / peaks.HBM_BYTES_PER_S
+    t_ops = flops / peaks.F32_FLOPS + f64_flops / peaks.F64_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "flops": flops, "f64_flops": f64_flops}
+
+
+def measure(bufs, kernel, plain, library, bound, plain_iters=10):
     """Time kernel(buf), plain(buf) and library(buf), each call on the next
-    of the rotating buffers `bufs`, and the bound of the work: the larger of
-    `moved` bytes over the HBM rate and the operations' time, `flops` over
-    the f32 rate plus `f64_flops` over the f64 rate. Where no PyTorch call
-    computes the function, `library` is None and so are its times."""
+    of the rotating buffers `bufs`, beside the bound of the work (`bound`:
+    call_bound's or work_bound's). Where no PyTorch call computes the
+    function, `library` is None and so are its times."""
     def cycled(fn):
         it = itertools.cycle(bufs)
         return lambda: fn(next(it))
 
     ms, ms_spread = time_ms(cycled(kernel))
     plain_ms, plain_spread = time_ms(cycled(plain), iters=plain_iters)
-    t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOPS + f64_flops / F64_FLOPS
     out = {
         "ms": ms, "ms_spread": ms_spread,
         "device_ms": device_ms(cycled(kernel)),
@@ -398,9 +420,7 @@ def measure(bufs, kernel, plain, library, moved, flops, plain_iters=10, f64_flop
         "plain_ms": plain_ms, "plain_ms_spread": plain_spread,
         "library_ms": None, "library_ms_spread": None,
         "library_device_ms": None, "library_host_ms": None, "host_over_library_host": None,
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": moved, "flops": flops, "f64_flops": f64_flops,
+        **bound,
     }
     if library is not None:
         out["library_ms"], out["library_ms_spread"] = time_ms(cycled(library))
@@ -425,25 +445,18 @@ def fwd_measure(torch, vol, off):
     from multimodal_segmentation_torch.ops import tps
     from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_fwd
 
-    B, H, W, C = vol.shape
+    H, W = vol.shape[1:3]
     cp = tps.control_grid((5, 5), vol.device)
 
     def library(v, grid):
         return F.grid_sample(v.permute(0, 3, 1, 2), grid, mode="bilinear",
                              padding_mode="zeros", align_corners=True)
 
-    # bound: each input read once, the output written once; operations:
-    # the basis once a point (25 terms of ~9, a logf counted as one), and
-    # per point and image the flow's sums (25 x 2 FMAs), ~20 for the affine
-    # term and corner weights and 8 per channel for the blend
     wv = tps.tps_coefficients(off)
     grid = grid_of(torch, tps.tps_sample_locations(off, (H, W)), H, W).to(vol.dtype)
-    nbytes = vol.numel() * vol.element_size()
-    out = measure(rotating(lambda: vol.clone(), nbytes),
+    out = measure(rotating(lambda: vol.clone(), vol.numel() * vol.element_size()),
                   lambda v: tps_warp_fwd(v, wv, cp), lambda v: tps._tps_warp_plain(v, off),
-                  lambda v: library(v, grid),
-                  2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
-                  H * W * 25 * 9 + B * H * W * (25 * 4 + 20 + 8 * C))
+                  lambda v: library(v, grid), call_bound("tps_warp_fwd", vol, wv, cp))
     out["library_max_abs_diff"] = (library(vol, grid).permute(0, 2, 3, 1).float()
                                    - tps_warp_fwd(vol, wv, cp).float()).abs().max().item()
     return out
@@ -643,7 +656,8 @@ def warp_general_phase(torch, dev):
     check(launches == want, "warp-general launches %s != %s" % (launches, want))
 
     # every case timed: bytes vol read and out written once, wv and the
-    # centres read once; operations general_bound's
+    # centres read once; operations general_bound's (float64 flow, which
+    # benchmark/flops/kernels.py does not count)
     buffers = {}
     for name, _, _, _, dtypes in GENERAL_CASES:
         wv, cp, order = splines[name]
@@ -666,8 +680,8 @@ def warp_general_phase(torch, dev):
                         lambda v, wv=wv, cp=cp, order=order: tps_warp_fwd(v, wv, cp, order),
                         lambda v, wv=wv, cp=cp, order=order: tps._tps_warp_general_plain(
                             v, wv, cp, order),
-                        library, 2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
-                        f32_ops, f64_flops=f64_ops)
+                        library, work_bound(2 * nbytes + wv.numel() * 4 + cp.numel() * 4,
+                                            f32_ops, f64_ops))
             m["library_max_abs_diff"] = (library(vol).permute(0, 2, 3, 1).float()
                                          - tps_warp_fwd(vol, wv, cp, order).float()
                                          ).abs().max().item()
@@ -732,7 +746,7 @@ def bwd_measure(torch, vol, g, locs, layout=""):
     from multimodal_segmentation_torch.ops import tps
     from multimodal_segmentation_torch.ops.cuda_kernels import tps_warp_bwd as bwd
 
-    B, H, W, C = vol.shape
+    H, W = vol.shape[1:3]
     nbytes = vol.numel() * vol.element_size()
     grid = grid_of(torch, locs, H, W).to(vol.dtype)
     bufs = []
@@ -747,12 +761,9 @@ def bwd_measure(torch, vol, g, locs, layout=""):
         out, vv, gr, gg = buf[2]
         torch.autograd.grad(out, (vv, gr), gg, retain_graph=True)
 
-    # bound: vol, g and locs read once, grad_vol and grad_locs written
-    # once; operations per point and channel: 4 weighted scatters and the
-    # two location terms (~16), per point ~20 for the weights
     return measure(bufs, lambda b: bwd(b[0], locs, b[1]),
                    lambda b: tps._tps_warp_bwd_plain(b[0], locs, b[1]), library,
-                   3 * nbytes + 2 * locs.numel() * 4, B * H * W * (16 * C + 20))
+                   call_bound("tps_warp_bwd", vol, locs))
 
 
 def warp_bwd_auto_phase(torch, dev):
@@ -930,6 +941,7 @@ def rotation_phase(torch, dev):
     import numpy as np
     import torch.nn.functional as F
 
+    from benchmark.flops.kernels import rotation_bound_s
     from multimodal_segmentation_torch.ops import augment
     from multimodal_segmentation_torch.ops import cuda_kernels as ck
 
@@ -994,18 +1006,17 @@ def rotation_phase(torch, dev):
             ts.append(1e3 * (time.perf_counter() - t0))
         return sorted(ts)[len(ts) // 2]
 
-    # bound: each array read once and each output written once; ~26
-    # operations a point and group (the location, round, clamp, index)
-    work = (2 * nbytes, 3 * B * H * W * 26)
+    bound = {"bound_ms": 1e3 * sum(rotation_bound_s(B, (H, W), sum(c for _, c in g))
+                                   for g in ROTATION_GROUPS)}
+
     def kernel(buf):
         for grp in buf:
             ck.rotate_group(grp, cos_t, sin_t)
 
-    res["path"] = {**measure(bufs, path, plain, library, *work, plain_iters=10),
-                   "wall_ms": wall(path)}
+    res["path"] = {**measure(bufs, path, plain, library, bound), "wall_ms": wall(path)}
     res["kernel"] = {**measure(bufs, kernel, lambda buf: [
-        augment._rotate_group_plain(grp, cos_t, sin_t) for grp in buf], library, *work,
-        plain_iters=10), "wall_ms": wall(kernel), "max_abs_err": err}
+        augment._rotate_group_plain(grp, cos_t, sin_t) for grp in buf], library, bound),
+        "wall_ms": wall(kernel), "max_abs_err": err}
     res["plain_wall_ms"] = wall(plain)
     return res
 
@@ -1027,6 +1038,7 @@ def rotation_auto_phase(torch, dev):
     import numpy as np
     import torch.nn.functional as F
 
+    from benchmark.flops.kernels import rotation_bound_s
     from multimodal_segmentation_torch.ops import augment
     from multimodal_segmentation_torch.ops import cuda_kernels as ck
 
@@ -1055,13 +1067,12 @@ def rotation_auto_phase(torch, dev):
     cats = {id(buf): torch.cat(buf, -1).permute(0, 3, 1, 2) for buf in bufs}
     grid = grid_of(torch, augment.rotation_locations(th, H, W), H, W)
     cos_t, sin_t = torch.cos(th), torch.sin(th)
-    # bound: each array read once and each output written once; ~26
-    # operations a point (the location, round, clamp, index)
     out = measure(bufs, lambda buf: ck.rotate_group(buf, cos_t, sin_t),
                   lambda buf: _rotation_reference(torch, buf, th),
                   lambda buf: F.grid_sample(cats[id(buf)], grid, mode="nearest",
                                             padding_mode="border", align_corners=True),
-                  2 * nbytes, B * H * W * 26)
+                  {"bound_ms": 1e3 * rotation_bound_s(
+                      B, (H, W), sum(c for _, c in AUTO_ROTATION_GROUP))})
     return {"group": [list(a) for a in AUTO_ROTATION_GROUP], "shape": [B, H, W],
             "bit_exact": True, "groups_checked": checked, "max_abs_err": 0.0, **out}
 
@@ -1123,9 +1134,6 @@ def nearest_warp_3d_phase(torch, dev):
 
     nbytes = vols.numel() * 4
     grid = grid_of(torch, locs, H, W)
-    # bound: vol and locs read once, the output written once; ~10
-    # operations a point (round, clamp, index)
-    work = (2 * nbytes + locs.numel() * 4, B * D * H * W * 10)
     for name, x in (("volumes", vols), ("masks", msks)):
         bufs = rotating(lambda: x.reshape(B * D, H, W, C).clone(), nbytes)
         cf = {id(buf): buf.permute(0, 3, 1, 2).contiguous() for buf in bufs}
@@ -1134,7 +1142,7 @@ def nearest_warp_3d_phase(torch, dev):
             lambda buf: augment._nearest_warp_plain(buf, locs),
             lambda buf: F.grid_sample(cf[id(buf)], grid, mode="nearest",
                                       padding_mode="border", align_corners=True),
-            *work)}
+            call_bound("nearest_warp", bufs[0], locs))}
     pairs = rotating(lambda: (vols.clone(), msks.clone()), 2 * nbytes)
     it = itertools.cycle(pairs)
     step = lambda: augment.random_rotate_volumes(th, *next(it))  # noqa: E731
@@ -1177,14 +1185,12 @@ def round_ste_phase(torch, dev):
               "round_ste ties")
         if name == "odd":
             continue
-        # anatomy-like values in [0, 1]; bound: read once, written once,
-        # one operation an element
+        # anatomy-like values in [0, 1]
         vol = torch.from_numpy(r.rand(*shape).astype(np.float32)).to(dev)
-        nbytes = vol.numel() * 4
         res[name + "_float32"] = {
             "shape": list(shape), "max_abs_err": err, "bit_exact": True,
-            **measure(rotating(lambda: vol.clone(), nbytes), round_ste, torch.round,
-                      torch.round, 2 * nbytes, vol.numel(), plain_iters=60),
+            **measure(rotating(lambda: vol.clone(), vol.numel() * 4), round_ste, torch.round,
+                      torch.round, call_bound("round_ste", vol), plain_iters=60),
         }
     return res
 
@@ -1229,8 +1235,8 @@ def bn_epilogue_phase(torch, dev):
                 nbytes = c.numel() * c.element_size()
                 bufs = rotating(lambda: c.clone(), nbytes)
                 row = measure(bufs, lambda b: bn_epilogue(b, *args),
-                              lambda b: bn_epilogue_plain(b, *args), None, 2 * nbytes,
-                              5 * c.numel())
+                              lambda b: bn_epilogue_plain(b, *args), None,
+                              work_bound(2 * nbytes, 5 * c.numel()))
                 it = itertools.cycle(bufs)
                 row["plain_device_ms"] = device_ms(lambda: bn_epilogue_plain(next(it), *args),
                                                    iters=10)
@@ -1284,7 +1290,8 @@ def thin_conv3d_phase(torch, dev):
             out_bytes = B * 32 * 114 * 130 * 130 * 2
             bufs = rotating(lambda: x.clone(), x.numel() * 2)
             row = measure(bufs, lambda b: thin_conv3d(b, w), lambda b: plain(b, w),
-                          lambda b: F.conv3d(b, w), x.numel() * 2 + out_bytes, 0, plain_iters=2)
+                          lambda b: F.conv3d(b, w), work_bound(x.numel() * 2 + out_bytes, 0),
+                          plain_iters=2)
         row["flops"] = 2 * 81 * 32 * B * 114 * 130 * 130
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         res["B=%d" % B] = {"shape": [B, *THIN_TILE], "max_abs_err": err, **row}
@@ -1400,8 +1407,8 @@ def flow_phase(torch, dev):
             out["stages_max_abs_diff"] = stages
             out.update(measure(bufs, lambda w: keep.append(tps_flow_dbg(w, cp, (H, W))),
                                lambda w: tps._tps_flow_stage_plain(w, cp, (H, W)), None,
-                               nbytes + wv.numel() * 4 + cp.numel() * 4,
-                               H * W * 25 * 9 + B * H * W * (25 * 4 + 10)))
+                               work_bound(nbytes + wv.numel() * 4 + cp.numel() * 4,
+                                          H * W * 25 * 9 + B * H * W * (25 * 4 + 10))))
             keep.clear()
         res["B=%d" % B] = out
     return res
@@ -1935,8 +1942,7 @@ class _Counted:
         return out
 
 
-def experiment_paths_phase(torch, device, presets=(
-        ("dafnet_config_chaos", "--automatedpairing"), ("mmsdnet_config_chaos",))):
+def experiment_paths_phase(torch, device, presets):
     """This slice's two CLI paths at full width on the synthetic data:
     `--config dafnet_config_chaos --automatedpairing --l_mix 0.5` and
     `--config mmsdnet_config_chaos --l_mix 0.5`, each one epoch of
@@ -2318,11 +2324,11 @@ def train3d_phase(torch, conf, device, warmup, steps, profile=0):
     `warmup` then `steps` timed steps (each with its own angles from the
     segmenter's generator): every loss finite, ms per step, studies/s,
     launches (exactly 2 nearest_warp a step and no other kernel on the
-    card), peak memory, every parameter moved; then the rotation of one
-    more batch keeps the masks {0,1}; then, on the card with `profile`,
-    a torch.profiler window over that many steps (device time by kind)."""
+    card), peak memory, every parameter moved; then, on the card with
+    `profile`, a torch.profiler window over that many steps (device time
+    by kind)."""
     from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
-    from multimodal_segmentation_torch.ops import augment, cuda_kernels
+    from multimodal_segmentation_torch.ops import cuda_kernels
 
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -2357,11 +2363,6 @@ def train3d_phase(torch, conf, device, warmup, steps, profile=0):
     moved = {n: (p.detach() - before[n]).abs().max().item() for n, p in params.named_parameters()}
     check(all(v > 0 for v in moved.values()),
           "parameters did not move: %s" % [n for n, v in moved.items() if v == 0])
-    vb, mb = next(batches)
-    th = augment.random_rotation_angles(model.generator, vb.shape[0], conf.rotation_range)
-    rv, rm = augment.random_rotate_volumes(th, vb, mb)
-    check(set(rm.unique().tolist()) <= {0.0, 1.0} and not torch.equal(rv, vb),
-          "the rotated masks are not {0,1}, or nothing rotated")
     ms = sorted(1e3 * t for t in times)
     p50 = ms[len(ms) // 2]
     out = {
@@ -2422,17 +2423,10 @@ def step_grads_3d(torch, conf, device, vb, mb, th, kinks=None):
 
 
 def train3d_cross_device_phase(torch, device):
-    """One Cardiac3DSegmenter.step at the tiny 3-D config (rotation 15) on
-    `device` and on the CPU, from the same weights, batch and angles: the
-    rotated batch equal, the loss and every gradient leaf within 1e-3
-    relative (a leaf's largest difference over its largest entry), except
-    the zero-gradient biases (every conv bias ahead of an InstanceNorm3D:
-    roundoff of either sign on either device), which are only reported.
-    A pre-activation within roundoff of 0 can take the other ReLU branch
-    on the other device and move a gradient by ~1e-2 (one did on the H100
-    in f32: 1.06e-6 on the card, -8.5e-7 on the CPU); the CPU run takes
-    the card's branch at such kinks (step_grads_3d) and their count is
-    reported."""
+    """The first batch of a tiny 3-D run (the tiny config's first batch
+    and angles) rotated on `device` and on the CPU: bit for bit equal.
+    (The step's loss and gradients on the card against the CPU's:
+    tests/test_torch_gpu.py::test_tiny_3d_step_on_the_card_matches_cpu.)"""
     from multimodal_segmentation_torch.ops import augment
 
     conf = tiny_3d()
@@ -2443,19 +2437,8 @@ def train3d_cross_device_phase(torch, device):
     rotated = [augment.random_rotate_volumes(th.to(d), vb.to(d), mb.to(d)) for d in (device, "cpu")]
     check(all(torch.equal(a.cpu(), b) for a, b in zip(*rotated)),
           "the 3-D rotation differs between %s and the CPU" % device)
-    exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c)
-              for b in range(2 * conf.downsample3d + 1) for c in (0, 1)}
-    loss_d, g_d, outs, _ = step_grads_3d(torch, conf, device, vb, mb, th)
-    loss_c, g_c, _, kinks = step_grads_3d(torch, conf, "cpu", vb, mb, th, outs)
-    rel = {n: ((g_d[n] - g_c[n]).abs().max() / g_c[n].abs().max()).item() for n in g_c}
-    loss_rel = abs(loss_d / loss_c - 1.0)
-    check(loss_rel <= 1e-3, "3-D cross-device loss differs by %.3g" % loss_rel)
-    bad = {n: v for n, v in rel.items() if n not in exempt and not v <= 1e-3}
-    check(not bad, "3-D cross-device gradients differ: %s" % bad)
-    return {"config": "tiny_3d", "device": str(device), "loss": {"device": loss_d, "cpu": loss_c},
-            "loss_rel_diff": loss_rel, "relu_kinks_aligned": kinks,
-            "max_grad_rel_diff": max(v for n, v in rel.items() if n not in exempt),
-            "zero_gradient_biases_rel_diff": {n: rel[n] for n in sorted(exempt)}}
+    return {"config": "tiny_3d", "device": str(device), "shape": list(vb.shape),
+            "rotation_bit_equal": True}
 
 
 def experiment3d_phase(torch, device, preset, **overrides):
@@ -3071,16 +3054,6 @@ def remat_phase(torch, device, presets, timed):
     return rows
 
 
-def mmsdnet_presets(config):
-    """{compute dtype: full-width mmsdnet_chaos on the synthetic data}."""
-    out = {}
-    for dtype in ("float32", "bfloat16"):
-        conf = config.mmsdnet_chaos()
-        conf.dataset_name, conf.compute_dtype = "synthetic", dtype
-        out[dtype] = conf
-    return out
-
-
 def dp_3d_reference(torch, conf, device):
     """The unsharded 3-D step of train-3d-dp: the first batch and angles,
     the loss, the gradients and the InstanceNorm3D outputs (step_grads_3d)."""
@@ -3334,12 +3307,12 @@ def dp_rank(rank, port, work, device, conf2d, conf3d, shapes3d, tp_min_features)
     torch.save(out, os.path.join(work, "rank%d.pt" % rank))
 
 
-def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **fields):
-    """train-dp-nccl1, then train-dp, train-3d-dp and experiment-dp: the
-    references in this process, then two gloo ranks (one spawned process
-    each, the kernels already built) for the three phases at once. Emits
-    each phase's line (with `fields`) when it is checked; returns {phase:
-    row}."""
+def dp_phases(torch, device, conf2d, conf3d, tp):
+    """train-dp-nccl1 and fused-adam, then train-dp, train-tp, train-3d-dp
+    and experiment-dp: the references in this process, then two gloo ranks
+    (one spawned process each, the kernels already built) for the last
+    four at once. Yields (phase, row) as each is checked; `tp`: train-tp's
+    (min_features, sharded leaves)."""
     import torch.multiprocessing as mp
 
     work = os.path.join(OUT_DIR, "dp")
@@ -3349,9 +3322,9 @@ def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **
     rows = {}
     rows["train-dp-nccl1"], alone, again = train_dp_nccl1_phase(
         torch, conf2d, device, DP_COMPARED, DP_NCCL1_TIMED)
-    emit("train-dp-nccl1", **fields, **rows["train-dp-nccl1"])
+    yield "train-dp-nccl1", rows["train-dp-nccl1"]
     rows["fused-adam"] = fused_adam_phase(torch, conf2d, device, alone, again)
-    emit("fused-adam", **fields, **rows["fused-adam"])
+    yield "fused-adam", rows["fused-adam"]
     ref3d = dp_3d_reference(torch, conf3d, device)
     torch.save({k: ref3d[k] for k in ("vb", "mb", "th", "norms")}, os.path.join(work, "ref3d.pt"))
     exp_alone = dp_experiment(torch, dp_experiment_conf(os.path.join(work, "experiment_alone")),
@@ -3395,10 +3368,10 @@ def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **
                 "not a scaling figure",
         "one_process_rerun": rows["train-dp-nccl1"]["one_process_rerun"],
         "per_rank": per_rank}
-    emit("train-dp", **fields, **rows["train-dp"])
+    yield "train-dp", rows["train-dp"]
 
     rows["train-tp"] = train_tp_rows(res, alone, again, conf2d, device, *tp)
-    emit("train-tp", **fields, **rows["train-tp"])
+    yield "train-tp", rows["train-tp"]
 
     # train-3d-dp: each mesh on each rank against the unsharded step
     exempt = {"ConvBlock3D_%d.Conv_%d.bias" % (b, c)
@@ -3429,7 +3402,7 @@ def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **
                            "loss_unsharded": ref3d["loss"], "timed_steps": DP_TIMED,
                            "note": "two gloo ranks on one card: not a scaling figure",
                            "meshes": meshes}
-    emit("train-3d-dp", **fields, **rows["train-3d-dp"])
+    yield "train-3d-dp", rows["train-3d-dp"]
 
     # experiment-dp: the 2-rank executor against the one process, beside
     # the one process's own run-to-run spread (B2's atomics on the card)
@@ -3475,27 +3448,7 @@ def dp_phases(torch, device, conf2d, conf3d, tp=(TP_MIN_FEATURES, TP_LEAVES), **
                              "writes_rank0": e0["writes"], "writes_rank1": e1["writes"],
                              "writes_one_process": exp_alone["writes"],
                              "launches": [e0["launches"], e1["launches"]]}
-    emit("experiment-dp", **fields, **rows["experiment-dp"])
-    return rows
-
-
-def _kernel_kind(name):
-    n = name.lower()
-    if any(k in n for k in ("tps_warp_fwd", "tps_warp_bwd", "nearest_copy", "round_ste",
-                            "tps_flow_dbg")):
-        return "port kernels"
-    # cuDNN's FFT-tiling convolutions: complex (cf32) GEMMs, FFTs, tile transforms
-    if any(k in n for k in ("cf32", "fft", "dse::", "region_transform")):
-        return "convolution"
-    if any(k in n for k in ("conv", "cudnn", "implicit", "wgrad", "dgrad", "fprop")):
-        return "convolution"
-    if "gemm" in n or "cutlass" in n or "sm90_" in n:
-        return "matmul"
-    if "reduce" in n or "norm" in n:
-        return "reduction"
-    if "memcpy" in n or "memset" in n:
-        return "copy/fill"
-    return "elementwise/other"
+    yield "experiment-dp", rows["experiment-dp"]
 
 
 def train_profile_phase(torch, conf, device, warmup=2, steps=3):
@@ -3513,8 +3466,11 @@ def train_profile_phase(torch, conf, device, warmup=2, steps=3):
 
 def profile_steps(torch, run, steps):
     """torch.profiler over `steps` calls of run(): device time by kernel
-    and by kind, and the share of the window the device was busy."""
+    and by kind (the benchmark's kernel_kind), and the share of the window
+    the device was busy."""
     from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.harness.trace import kernel_kind
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3528,7 +3484,7 @@ def profile_steps(torch, run, steps):
     check(device_us > 0, "the profiler saw no device time")
     kinds = {}
     for us, key, _ in rows:
-        kinds[_kernel_kind(key)] = kinds.get(_kernel_kind(key), 0.0) + us
+        kinds[kernel_kind(key)] = kinds.get(kernel_kind(key), 0.0) + us
     return {
         "steps": steps,
         "wall_ms_per_step": wall_us / 1e3 / steps,
@@ -3541,104 +3497,30 @@ def profile_steps(torch, run, steps):
     }
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="every phase but env, build and kernels at the tiny "
-                         "config on the CPU; no result line")
-    ap.add_argument("--profile-train", action="store_true",
-                    help="only profile full-width train steps on the card; "
-                         "no result line")
-    args = ap.parse_args(argv)
-    if not os.path.isdir(os.path.join(REPO, "multimodal_segmentation_torch")):
-        sys.exit("chip_smoke.py: the multimodal_segmentation_torch package is "
-                 "not in %s; run it from the repository" % REPO)
-    sys.path.insert(0, REPO)
-    # the chaos phase's tree; the CHAOS loader reads this when its module
-    # first loads (every other phase names the synthetic loader)
-    os.environ["MMSEG_TPU_CHAOS_DIR"] = CHAOS_ROOT
-    import torch
+def env_phase(torch, smi):
+    """The card's name and count, nvidia-smi's name and power limit, the
+    versions, both TF32 flags and the process-group backends."""
+    return {"device": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+            "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+            "python": sys.version.split()[0],
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "nccl_available": torch.distributed.is_nccl_available(),
+            "gloo_available": torch.distributed.is_gloo_available()}
 
-    from multimodal_segmentation_torch import config
 
-    if args.cpu_rehearsal:
-        conf = config.tiny_test_config()
-        conf.test_dataset, conf.folder = "synthetic", os.path.join(OUT_DIR, "rehearsal")
-        model, warm, res, argmaxes = slice_phase(torch, conf, "cpu")
-        emit("slice", **res)
-        emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cpu"))
-        conf.eval_dtype, conf.folder = "bfloat16", os.path.join(OUT_DIR, "rehearsal_bf16")
-        emit("slice-bf16", **slice_phase(torch, conf, "cpu",
-                                         (argmaxes, res["p50_ms_per_volume"]))[2])
-        emit("train", **train_phase(torch, config.tiny_test_config(), "cpu", 1, 2))
-        bf16 = config.tiny_test_config()
-        bf16.compute_dtype = "bfloat16"
-        emit("train-bf16", **train_phase(torch, bf16, "cpu", 1, 2))
-        emit("lockstep", **lockstep_phase(torch, "cpu"))
-        for dtype in ("float32", "bfloat16"):
-            spade = config.tiny_test_config("dafnet", "spade")
-            spade.compute_dtype = dtype
-            emit("train-spade", **train_phase(torch, spade, "cpu", 1, 2))
-        emit("train-cross-device", **train_cross_device_phase(torch, "cpu"))
-        emit("debug-warp", **debug_warp_phase(torch, "cpu"))
-        config.PRESETS.setdefault("tiny", config.tiny_test_config)
-        emit("experiment", **experiment_phase(torch, "cpu", "tiny"))
-        emit("chaos", **chaos_phase(torch, "cpu", tiny=True))
-        for name, model, auto in (("train-auto", "dafnet", True),
-                                  ("train-mmsdnet", "mmsdnet", False)):
-            for dtype in ("float32", "bfloat16"):
-                conf = config.tiny_test_config(model)
-                conf.automatedpairing, conf.compute_dtype = auto, dtype
-                emit(name, **train_phase(torch, conf, "cpu", 1, 2))
-        config.PRESETS.setdefault("tiny_mmsdnet", lambda: config.tiny_test_config("mmsdnet"))
-        emit("experiment-paths", **experiment_paths_phase(
-            torch, "cpu", (("tiny", "--automatedpairing"), ("tiny_mmsdnet",))))
-        emit("balancer-order", **balancer_order_phase(torch, "cpu"))
-        tiny = {}
-        for dtype in ("float32", "bfloat16"):
-            tiny[dtype] = config.tiny_test_config("mmsdnet")
-            tiny[dtype].dataset_name, tiny[dtype].compute_dtype = "synthetic", dtype
-        emit("train-mmsdnet-remat", **remat_phase(torch, "cpu", tiny, 1))
-        for dtype in ("float32", "bfloat16"):
-            conf = tiny_3d()
-            conf.compute_dtype = dtype
-            emit("train-3d", **train3d_phase(torch, conf, "cpu", 1, 2))
-        emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cpu"))
-        small = {k: getattr(tiny_3d(), k) for k in ("volume_shape", "filters3d", "downsample3d")}
-        emit("experiment-3d", **experiment3d_phase(torch, "cpu", "cardiac_3d_config", **small))
-        conf = config.tiny_test_config()
-        conf.dataset_name = "synthetic"
-        dp_phases(torch, "cpu", conf, tiny_3d(), tp=(16, 17))
-        return 0
-
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
-                 "false); this script needs one GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def build_phase():
+    """Every CUDA kernel built from csrc/: seconds, ptxas lines."""
     from multimodal_segmentation_torch.ops import cuda_kernels
-
-    if args.profile_train:
-        conf = config.dafnet_chaos()
-        conf.dataset_name = "synthetic"
-        emit("train-profile", card=nvidia_smi(),
-             **train_profile_phase(torch, conf, "cuda"))
-        return 0
-
-    smi = nvidia_smi()
-    emit("env", device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0],
-         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         nccl_available=torch.distributed.is_nccl_available(),
-         gloo_available=torch.distributed.is_gloo_available())
 
     t0 = time.perf_counter()
     builds = cuda_kernels.build_all()
-    emit("build", seconds=time.perf_counter() - t0, kernels=builds)
+    return {"seconds": time.perf_counter() - t0, "kernels": builds}
 
-    dev = torch.device("cuda", 0)
+
+def kernels_phase(torch, dev):
+    """The kernels line: each kernel's rows, and B5's device time over B1's
+    at the shapes they share."""
     kern = {
         "tps_warp_fwd": warp_fwd_phase(torch, dev),
         "warp_general": warp_general_phase(torch, dev),
@@ -3653,121 +3535,142 @@ def main(argv=None):
         "flow": flow_phase(torch, dev),
         "nearest_warp_3d": nearest_warp_3d_phase(torch, dev),
     }
-    fwd = kern["tps_warp_fwd"]
-    kern["flow"]["share_of_b1_device_ms"] = {
-        "train B=12 f32": kern["flow"]["B=12"]["device_ms"] / fwd["train_float32"]["device_ms"],
-        "infer B=24 bf16": kern["flow"]["B=24"]["device_ms"] / fwd["bfloat16"]["device_ms"],
-        "infer B=24 f32": kern["flow"]["B=24"]["device_ms"] / fwd["float32"]["device_ms"],
-        "train B=12 bf16": kern["flow"]["B=12"]["device_ms"] / fwd["train_bfloat16"]["device_ms"],
+    fwd, flow = kern["tps_warp_fwd"], kern["flow"]
+    flow["share_of_b1_device_ms"] = {
+        "train B=12 f32": flow["B=12"]["device_ms"] / fwd["train_float32"]["device_ms"],
+        "infer B=24 bf16": flow["B=24"]["device_ms"] / fwd["bfloat16"]["device_ms"],
+        "infer B=24 f32": flow["B=24"]["device_ms"] / fwd["float32"]["device_ms"],
+        "train B=12 bf16": flow["B=12"]["device_ms"] / fwd["train_bfloat16"]["device_ms"],
     }
-    emit("kernels", card=smi, **kern)
-    emit("dp-kernels", card=smi, **dp_kernels_phase(torch, dev))
-    bisect = debug_warp_phase(torch, "cuda")
-    emit("debug-warp", **bisect)
+    return kern
 
-    conf = config.dafnet_chaos()
-    conf.test_dataset, conf.folder = "synthetic", os.path.join(OUT_DIR, "dafnet_chaos")
-    model, warm, res, argmaxes = slice_phase(torch, conf, "cuda")
-    emit("slice", card=smi, **res)
-    emit("cross-device", **cross_device_phase(torch, conf, model, warm, "cuda"))
+
+def slice_rows(torch, conf, device):
+    """slice, cross-device (on the slice's model and first volume) and
+    slice-bf16 (against the slice's argmaxes and p50s): (phase, row)."""
+    model, warm, res, argmaxes = slice_phase(torch, conf, device)
+    yield "slice", res
+    yield "cross-device", cross_device_phase(torch, conf, model, warm, device)
     del model, warm
-    conf.eval_dtype, conf.folder = "bfloat16", os.path.join(OUT_DIR, "dafnet_chaos_bf16")
-    res_bf16 = slice_phase(torch, conf, "cuda", (argmaxes, res["p50_ms_per_volume"]))[2]
-    emit("slice-bf16", card=smi, **res_bf16)
-    del argmaxes
+    bf16 = dataclasses.replace(conf, eval_dtype="bfloat16", folder=conf.folder + "_bf16")
+    yield "slice-bf16", slice_phase(torch, bf16, device, (argmaxes, res["p50_ms_per_volume"]))[2]
 
-    conf = config.dafnet_chaos()
-    conf.dataset_name = "synthetic"
-    train = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
-    emit("train", card=smi, **train)
-    conf.compute_dtype = "bfloat16"
-    train_bf16 = train_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN_STEPS)
-    train_bf16["p50_over_f32"] = train_bf16["p50_ms_per_step"] / train["p50_ms_per_step"]
-    emit("train-bf16", card=smi, **train_bf16)
-    lockstep = lockstep_phase(torch, "cuda")
-    emit("lockstep", card=smi, **lockstep)
-    spade = {}
-    for dtype in ("float32", "bfloat16"):
-        conf = config.dafnet_spade_chaos()
-        conf.dataset_name, conf.compute_dtype = "synthetic", dtype
-        spade[dtype] = train_phase(torch, conf, "cuda", TRAIN_WARMUP, SPADE_STEPS)
-        emit("train-spade", card=smi, **spade[dtype])
-    emit("train-cross-device", **train_cross_device_phase(torch, "cuda"))
-    # this slice's paths at full width: automated pairing and MMSDNet
-    new_train = {}
-    for name, preset, auto in (("train-auto", config.dafnet_chaos, True),
-                               ("train-mmsdnet", config.mmsdnet_chaos, False)):
-        for dtype in ("float32", "bfloat16"):
-            conf = preset()
-            conf.dataset_name, conf.compute_dtype, conf.automatedpairing = "synthetic", dtype, auto
-            row = train_phase(torch, conf, "cuda", TRAIN_WARMUP, NEW_TRAIN_STEPS)
-            key = name + ("-bf16" if dtype == "bfloat16" else "")
-            if dtype == "bfloat16":
-                row["p50_over_f32"] = row["p50_ms_per_step"] / new_train[name]["p50_ms_per_step"]
-            new_train[key] = row
-            emit(name, card=smi, **row)
-            torch.cuda.empty_cache()
-    remat = remat_phase(torch, "cuda", mmsdnet_presets(config), REMAT_TIMED)
-    emit("train-mmsdnet-remat", card=smi, **remat)
-    torch.cuda.empty_cache()
-    exp = experiment_phase(torch, "cuda", "dafnet_config_chaos")
-    emit("experiment", card=smi, **exp)
-    torch.cuda.empty_cache()
-    paths_exp = experiment_paths_phase(torch, "cuda")
-    emit("experiment-paths", card=smi, **paths_exp)
-    balancer = balancer_order_phase(torch, "cuda")
-    emit("balancer-order", card=smi, **balancer)
-    torch.cuda.empty_cache()
-    chaos = chaos_phase(torch, "cuda")
-    emit("chaos", card=smi, **chaos)
-    # the volumetric path at full cardiac_3d width
-    train3d = {}
-    for dtype in ("float32", "bfloat16"):
-        conf = config.cardiac_3d()
-        conf.compute_dtype = dtype
-        row = train3d_phase(torch, conf, "cuda", TRAIN_WARMUP, TRAIN3D_STEPS, TRAIN3D_PROFILE_STEPS)
-        key = "train-3d" + ("-bf16" if dtype == "bfloat16" else "")
-        if dtype == "bfloat16":
-            row["p50_over_f32"] = row["p50_ms_per_step"] / train3d["train-3d"]["p50_ms_per_step"]
-        train3d[key] = row
-        emit("train-3d", card=smi, **row)
-    emit("train-3d-cross-device", **train3d_cross_device_phase(torch, "cuda"))
-    exp3d = experiment3d_phase(torch, "cuda", "cardiac_3d_config")
-    emit("experiment-3d", card=smi, **exp3d)
-    # data parallelism: NCCL at world size 1, two gloo ranks on the card
-    torch.cuda.empty_cache()
-    conf = config.dafnet_chaos()
-    conf.dataset_name = "synthetic"
-    dp = dp_phases(torch, "cuda", conf, config.cardiac_3d(), card=smi)
 
-    # launches of every path: inference (slice, slice-bf16), the train
-    # phases, the lockstep runs, the experiment, the dress rehearsal and
-    # the warp-bisect tool
-    paths = {"slice": res["launches"], "slice-bf16": res_bf16["launches"],
-             "train": train["launches"], "train-bf16": train_bf16["launches"],
-             "lockstep": lockstep["launches"], "train-spade": spade["float32"]["launches"],
-             "train-spade-bf16": spade["bfloat16"]["launches"], "experiment": exp["launches"],
-             "chaos": chaos["launches"], "debug-warp": bisect["launches"],
-             **{k: v["launches"] for k, v in new_train.items()},
-             **{"experiment-" + k: {n: v["launches"][n] + v["test_launches"][n]
-                                    for n in v["launches"]} for k, v in paths_exp.items()},
-             "balancer-order": balancer["launches"],
-             **{k: v["launches"] for k, v in train3d.items()},
-             "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
-                               for n in exp3d["launches"]},
-             "warp-general": kern["warp_general"]["launches"],
-             "unet3d-forward": kern["thin_conv3d"]["forward"]["launches"],
-             **{"train-mmsdnet-remat-" + k: v["launches"] for k, v in remat.items()},
-             "fused-adam": dp["fused-adam"]["launches"],
-             "train-tp": _summed(r["launches"] for r in dp["train-tp"]["per_rank"]),
-             "train-dp-nccl1": dp["train-dp-nccl1"]["launches"],
-             "train-dp": _summed(r["launches"] for r in dp["train-dp"]["per_rank"]),
-             "train-3d-dp": _summed(m["launches"] for m in dp["train-3d-dp"]["meshes"]),
-             "experiment-dp": _summed(dp["experiment-dp"]["launches"])}
-    launches = {k: sum(p[k] for p in paths.values()) for k in train["launches"]}
-    main_dtype = "bfloat16" if conf.eval_warp == "bf16" else "float32"
+def in_both_dtypes(phases, run, conf):
+    """run(conf) at compute_dtype float32, then at bfloat16 with its p50
+    over the float32 row's: (phase, row), the phases named `phases`."""
+    f32 = run(dataclasses.replace(conf, compute_dtype="float32"))
+    yield phases[0], f32
+    bf16 = run(dataclasses.replace(conf, compute_dtype="bfloat16"))
+    bf16["p50_over_f32"] = bf16["p50_ms_per_step"] / f32["p50_ms_per_step"]
+    yield phases[1], bf16
+
+
+def phase_table(torch, config, card, smi):
+    """Every phase, once, in the order of the card run's lines: (name,
+    run). run() returns the phase's row, or yields (phase, row) for each of
+    its lines. Where a phase runs otherwise on the card than in
+    --cpu-rehearsal, pick(on the card, in the rehearsal) gives both: full
+    width on the card, the tiny config on the CPU; a run that picks None
+    has no rehearsal (env, build and the kernels)."""
+    dev = "cuda" if card else "cpu"
+
+    def pick(on_card, rehearsal):
+        return on_card if card else rehearsal
+
+    def synthetic(conf, **fields):
+        return dataclasses.replace(conf, dataset_name="synthetic", **fields)
+
+    def dafnet(**fields):
+        return synthetic(pick(config.dafnet_chaos(), config.tiny_test_config()), **fields)
+
+    def mmsdnet(**fields):
+        return synthetic(pick(config.mmsdnet_chaos(), config.tiny_test_config("mmsdnet")),
+                         **fields)
+
+    def train(steps):
+        return lambda conf: train_phase(torch, conf, dev, *pick((TRAIN_WARMUP, steps), (1, 2)))
+
+    small_3d = {k: getattr(tiny_3d(), k) for k in ("volume_shape", "filters3d", "downsample3d")}
+    return (
+        ("env", pick(lambda: env_phase(torch, smi), None)),
+        ("build", pick(build_phase, None)),
+        ("kernels", pick(lambda: kernels_phase(torch, torch.device("cuda", 0)), None)),
+        ("dp-kernels", pick(lambda: dp_kernels_phase(torch, torch.device("cuda", 0)), None)),
+        ("debug-warp", lambda: debug_warp_phase(torch, dev)),
+        ("slice, cross-device, slice-bf16", lambda: slice_rows(torch, dafnet(
+            test_dataset="synthetic",
+            folder=os.path.join(OUT_DIR, pick("dafnet_chaos", "rehearsal"))), dev)),
+        ("train, train-bf16", lambda: in_both_dtypes(
+            ("train", "train-bf16"), train(TRAIN_STEPS), dafnet())),
+        ("lockstep", lambda: lockstep_phase(torch, dev)),
+        ("train-spade", lambda: in_both_dtypes(("train-spade",) * 2, train(SPADE_STEPS), synthetic(
+            pick(config.dafnet_spade_chaos(), config.tiny_test_config("dafnet", "spade"))))),
+        ("train-cross-device", lambda: train_cross_device_phase(torch, dev)),
+        ("train-auto", lambda: in_both_dtypes(
+            ("train-auto",) * 2, train(NEW_TRAIN_STEPS), dafnet(automatedpairing=True))),
+        ("train-mmsdnet", lambda: in_both_dtypes(
+            ("train-mmsdnet",) * 2, train(NEW_TRAIN_STEPS), mmsdnet())),
+        ("train-mmsdnet-remat", lambda: remat_phase(
+            torch, dev, {dt: mmsdnet(compute_dtype=dt) for dt in ("float32", "bfloat16")},
+            pick(REMAT_TIMED, 1))),
+        ("experiment", lambda: experiment_phase(torch, dev, pick("dafnet_config_chaos", "tiny"))),
+        ("experiment-paths", lambda: experiment_paths_phase(torch, dev, pick(
+            (("dafnet_config_chaos", "--automatedpairing"), ("mmsdnet_config_chaos",)),
+            (("tiny", "--automatedpairing"), ("tiny_mmsdnet",))))),
+        ("balancer-order", lambda: balancer_order_phase(torch, dev)),
+        ("chaos", lambda: chaos_phase(torch, dev, tiny=not card)),
+        ("train-3d", lambda: in_both_dtypes(("train-3d",) * 2, lambda conf: train3d_phase(
+            torch, conf, dev, *pick((TRAIN_WARMUP, TRAIN3D_STEPS, TRAIN3D_PROFILE_STEPS), (1, 2))),
+            pick(config.cardiac_3d(), tiny_3d()))),
+        ("train-3d-cross-device", lambda: train3d_cross_device_phase(torch, dev)),
+        ("experiment-3d", lambda: experiment3d_phase(torch, dev, "cardiac_3d_config",
+                                                     **pick({}, small_3d))),
+        ("train-dp-nccl1, fused-adam, train-dp, train-tp, train-3d-dp, experiment-dp",
+         lambda: dp_phases(torch, dev, dafnet(), pick(config.cardiac_3d(), tiny_3d()),
+                           pick((TP_MIN_FEATURES, TP_LEAVES), (16, 17)))),
+    )
+
+
+def summary(rows, main_dtype):
+    """The kernels summary: each kernel at its main shape (B1 in
+    `main_dtype`) and its other shapes, with its launches on every path the
+    run took (the slice, train, lockstep, experiment, dress rehearsal,
+    warp-bisect, 3-D, remat and data-parallel phases, and the kernels
+    line's own)."""
+    kern = rows["kernels"]
+    paths = {k: rows[k]["launches"] for k in (
+        "slice", "slice-bf16", "train", "train-bf16", "lockstep", "train-spade",
+        "train-spade-bf16", "experiment", "chaos", "debug-warp", "train-auto", "train-auto-bf16",
+        "train-mmsdnet", "train-mmsdnet-bf16")}
+    paths.update({"experiment-" + k: {n: v["launches"][n] + v["test_launches"][n]
+                                      for n in v["launches"]}
+                  for k, v in rows["experiment-paths"].items()})
+    exp3d = rows["experiment-3d"]
+    paths.update({
+        "balancer-order": rows["balancer-order"]["launches"],
+        "train-3d": rows["train-3d"]["launches"], "train-3d-bf16": rows["train-3d-bf16"]["launches"],
+        "experiment-3d": {n: exp3d["launches"][n] + exp3d["test_launches"][n]
+                          for n in exp3d["launches"]},
+        "warp-general": kern["warp_general"]["launches"],
+        "unet3d-forward": kern["thin_conv3d"]["forward"]["launches"],
+        **{"train-mmsdnet-remat-" + k: v["launches"]
+           for k, v in rows["train-mmsdnet-remat"].items()},
+        "fused-adam": rows["fused-adam"]["launches"],
+        "train-tp": _summed(r["launches"] for r in rows["train-tp"]["per_rank"]),
+        "train-dp-nccl1": rows["train-dp-nccl1"]["launches"],
+        "train-dp": _summed(r["launches"] for r in rows["train-dp"]["per_rank"]),
+        "train-3d-dp": _summed(m["launches"] for m in rows["train-3d-dp"]["meshes"]),
+        "experiment-dp": _summed(rows["experiment-dp"]["launches"])})
+    launches = {k: sum(p[k] for p in paths.values()) for k in rows["train"]["launches"]}
     src = "multimodal_segmentation_torch/csrc/"
     pallas = "multimodal_segmentation_tpu/ops/pallas_kernels.py:"
+    # each row's fields that the summary keeps; bound_by where the row has
+    # one (work_bound's rows: the benchmark's call_bound_s gives seconds)
+    fields = ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms", "library_device_ms", "library_host_ms")
+    shape_fields = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")
     # the shapes the later slices' paths give the kernels: automated
     # pairing (slice 9), the volumetric rotation (slice 10)
     more_shapes = {
@@ -3783,7 +3686,7 @@ def main(argv=None):
                         if key != "76x64x192x192_bfloat16"},
         "thin_conv3d": {"(2, 3, 116, 132, 132) bfloat16": kern["thin_conv3d"]["B=2"]},
     }
-    summary = []
+    out = []
     for name, source, replaces, k, work in (
             ("tps_warp_fwd", "tps_warp.cu", pallas + "315", kern["tps_warp_fwd"][main_dtype],
              "B=24 192x192 C=8 %s (inference)" % main_dtype),
@@ -3803,31 +3706,20 @@ def main(argv=None):
             ("thin_conv3d", "thin_conv3d.cu", "none: cuDNN has only a legacy kernel for 3 "
              "input channels", kern["thin_conv3d"]["B=16"], "(16, 3, 116, 132, 132) -> 32 "
              "bfloat16: the 3D U-Net's first convolution on a serving forward's tiles")):
-        summary.append({
+        out.append({
             "name": name,
             "route": "cuda",
             "source": src + source,
             "replaces": replaces,
             "launches": launches[name],
             "launches_by_path": {p: counts[name] for p, counts in paths.items()},
-            "max_abs_err": k["max_abs_err"],
-            "ms": k["ms"],
-            "device_ms": k["device_ms"],
-            "host_ms": k["host_ms"],
-            "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
-            "library_device_ms": k["library_device_ms"],
-            "library_host_ms": k["library_host_ms"],
+            **{f: k[f] for f in fields if f in k},
             "work": work,
-            "more_shapes": {case: {f: r[f] for f in ("max_abs_err", "ms", "device_ms",
-                                                     "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms", "library_device_ms")}
+            "more_shapes": {case: {f: r[f] for f in shape_fields if f in r}
                             for case, r in more_shapes[name].items()},
         })
     g = kern["warp_general"]
-    summary.insert(1, {
+    out.insert(1, {
         "name": "tps_warp_fwd (general entry)",
         "route": "cuda",
         "source": src + "tps_warp.cu",
@@ -3835,20 +3727,72 @@ def main(argv=None):
         "launches": sum(p.get("tps_warp_fwd_general", 0) for p in paths.values()),
         "launches_by_path": {p: c["tps_warp_fwd_general"] for p, c in paths.items()
                              if "tps_warp_fwd_general" in c},
-        **{f: g[f] for f in ("max_abs_err", "ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms", "library_device_ms", "library_host_ms")},
+        **{f: g[f] for f in fields},
         "work": "B=12 192x192 C=8 float32, inverse mapping (per-image centres), order 2, "
                 "25 points; also orders 1, 3, 4 and a 4x4 grid, and bf16 (max_abs_err over "
                 "all): tps_warp's general entry, launched by the warp-general path",
-        "more_shapes": {"%s %s" % (case, dtype): {f: row[dtype][f] for f in (
-            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_device_ms")}
-            for case, row in g["cases"].items() for dtype in ("float32", "bfloat16")
-            if dtype in row and (case, dtype) != ("inverse", "float32")},
+        "more_shapes": {"%s %s" % (case, dtype): {f: row[dtype][f] for f in shape_fields}
+                        for case, row in g["cases"].items() for dtype in ("float32", "bfloat16")
+                        if dtype in row and (case, dtype) != ("inverse", "float32")},
     })
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="every phase but env, build, kernels and dp-kernels at the "
+                         "tiny config on the CPU; no result line")
+    ap.add_argument("--profile-train", action="store_true",
+                    help="only profile full-width train steps on the card; "
+                         "no result line")
+    args = ap.parse_args(argv)
+    if not os.path.isdir(os.path.join(REPO, "multimodal_segmentation_torch")):
+        sys.exit("chip_smoke.py: the multimodal_segmentation_torch package is "
+                 "not in %s; run it from the repository" % REPO)
+    sys.path.insert(0, REPO)
+    # the chaos phase's tree; the CHAOS loader reads this when its module
+    # first loads (every other phase names the synthetic loader)
+    os.environ["MMSEG_TPU_CHAOS_DIR"] = CHAOS_ROOT
+    import torch
+
+    from multimodal_segmentation_torch import config
+
+    card = not args.cpu_rehearsal
+    smi = None
+    if card:
+        if not torch.cuda.is_available():
+            sys.exit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+                     "false); this script needs one GPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        smi = nvidia_smi()
+        if args.profile_train:
+            conf = dataclasses.replace(config.dafnet_chaos(), dataset_name="synthetic")
+            emit("train-profile", card=smi, **train_profile_phase(torch, conf, "cuda"))
+            return 0
+    else:
+        # the experiment phases' CLI runs name the tiny configs as presets
+        config.PRESETS.setdefault("tiny", config.tiny_test_config)
+        config.PRESETS.setdefault("tiny_mmsdnet", lambda: config.tiny_test_config("mmsdnet"))
+
+    rows = {}
+    for name, run in phase_table(torch, config, card, smi):
+        if run is None:
+            continue
+        out = run()
+        for phase, row in [(name, out)] if isinstance(out, dict) else out:
+            # a phase's second line (its bf16 row) is kept as <phase>-bf16
+            rows[phase + "-bf16" if phase in rows else phase] = row
+            emit(phase, **({"card": smi} if card and phase != "env" else {}), **row)
+            if card:
+                torch.cuda.empty_cache()
+    if not card:
+        return 0
+    kernels = summary(rows, "bfloat16" if config.dafnet_chaos().eval_warp == "bf16" else "float32")
     emit("total", seconds=time.perf_counter() - _T0)
     print(smi)
-    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
