@@ -292,8 +292,9 @@ at::Tensor op_bn_epilogue(const at::Tensor& c, const at::Tensor& cbias,
 // x: (N, C, D, H, W) contiguous bfloat16, 1 <= C <= 4, D, H >= 3, W >= 4
 // and even, 4-byte aligned; wp: (ceil(K / 32) * 32, ceil(C * 27 / 16) *
 // 16) contiguous bfloat16 on x's device, the (K, C * 27) weights
-// zero-padded. The output, (N, K, D - 2, H - 2, W - 2), contiguous
-// bfloat16.
+// zero-padded. The output, (N, K, D - 2, H - 2, W - 2) bfloat16 in
+// channels_last_3d (NDHWC in memory): the layout the 3D U-Net keeps on the
+// card, in which cuDNN's convolutions need no transform.
 at::Tensor op_thin_conv3d(const at::Tensor& x, const at::Tensor& wp, int64_t K,
                           int64_t stream) {
   const char* name = "thin_conv3d";
@@ -316,7 +317,8 @@ at::Tensor op_thin_conv3d(const at::Tensor& x, const at::Tensor& wp, int64_t K,
                     name, ": wp must be a contiguous (", rows, ", ", taps, ") ",
                     x.scalar_type(), " on ", x.device(), ", got ", wp.sizes(), " ",
                     wp.scalar_type(), " on ", wp.device());
-  at::Tensor out = at::empty({N, K, D - 2, H - 2, W - 2}, x.options());
+  at::Tensor out = at::empty({N, K, D - 2, H - 2, W - 2}, x.options(),
+                             at::MemoryFormat::ChannelsLast3d);
   launched(thin_conv3d(x.data_ptr(), wp.data_ptr(), out.data_ptr(), i32(N), i32(C), i32(D),
                        i32(H), i32(W), i32(K), stream_of(stream)),
            name);

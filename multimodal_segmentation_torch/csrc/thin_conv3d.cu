@@ -7,7 +7,11 @@
 //                      wt[k, c, i, j, l] * x[n, c, d + i, h + j, w + l]
 //
 // summed in f32 and rounded once to bf16 (as cuDNN rounds);
-// no bias (its caller adds it as PyTorch adds cuDNN's).
+// no bias (its caller adds it as PyTorch adds cuDNN's). x is read NCDHW,
+// as the overlap-tile gathers it; y is written NDHWC (PyTorch's
+// channels_last_3d), the layout in which the U-Net's later convolutions
+// run on the card: cuDNN's sm90 kernels read and write NDHWC, and an NCDHW
+// tensor costs them a transform each way (PERF.md).
 //
 // Replaces no TPU kernel: it was added for the 3D U-Net's first
 // convolution (3 -> 32 channels, nn/unet3d.py::ValidConv3d), for which
@@ -36,10 +40,14 @@
 // voxels by the 32 channels' weights (kept in shared memory for the
 // block's life): ldmatrix.trans reads the A fragments from At, ldmatrix
 // the B fragments from the weights. The sums go through shared memory, by
-// channel, so that each channel's 128 voxels are written as 16-byte
-// stores. Rows of At and of the weights are padded by 16 bytes so that
-// ldmatrix's eight rows fall in distinct banks. At (16, 3, 116, 132, 132)
-// -> 32 channels it runs in 1.7 ms on an H100, 38 % of the bytes' bound
+// voxel: a voxel's 32 channels are one 64-byte row, so a tile of 128
+// voxels is one contiguous 8 KB run of 16-byte stores where K = 32, and
+// 64-byte runs a voxel where K > 32. The rows' four 16-byte chunks are
+// swizzled (chunk ^ (voxel / 2) % 4), so that the mma fragments' stores and
+// the 16-byte reads both fall in distinct banks. Rows of At and of the
+// weights are padded by 16 bytes so that ldmatrix's eight rows fall in
+// distinct banks. At (16, 3, 116, 132, 132) -> 32 channels it runs in
+// 1.7 ms on an H100, as it did writing NCDHW: ~38 % of the bytes' bound
 // (PERF.md).
 //
 // Only what a caller reaches is built: bf16 (the port's compute dtype; fp16
@@ -57,7 +65,7 @@ constexpr int kThreads = 128;    // 4 warps
 constexpr int kTile = 128;       // output voxels a tile
 constexpr int kChannels = 32;    // output channels a block
 constexpr int kMaxChannels = 4;
-constexpr int kRow = kTile + 8;  // At's and the staging's row, in 16-bit elements
+constexpr int kRow = kTile + 8;  // At's row, in 16-bit elements
 
 __host__ __device__ constexpr int padded_taps(int C) { return (C * 27 + 15) / 16 * 16; }
 
@@ -90,11 +98,12 @@ __device__ __forceinline__ uint16_t round_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
-// x: (N, C, D, H, W) and y: (N, K, D - 2, H - 2, W - 2), contiguous, as
-// bf16 bit patterns, W even and x 4-byte aligned; wp: (gridDim.y * 32, KK)
-// packed weights, zero past (K, C * 27). Shared memory: At (KK rows of
-// kRow), the staged sums Os (32 rows of kRow), the block's weights Ws (32
-// rows of KK + 8).
+// x: (N, C, D, H, W) contiguous and y: (N, D - 2, H - 2, W - 2, K)
+// contiguous (NDHWC), as bf16 bit patterns, W even, x 4-byte aligned and y
+// 16-byte aligned; wp: (gridDim.y * 32, KK) packed weights, zero past (K, C
+// * 27). Shared memory: At (KK rows of kRow), the staged sums Os (kTile
+// rows of 32 channels, swizzled), the block's weights Ws (32 rows of KK +
+// 8).
 template <int kC>
 __global__ void __launch_bounds__(kThreads)
 thin_conv3d_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ wp,
@@ -104,7 +113,7 @@ thin_conv3d_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ 
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* At = reinterpret_cast<uint16_t*>(smem);
   uint16_t* Os = At + KK * kRow;
-  uint16_t* Ws = Os + kChannels * kRow;
+  uint16_t* Ws = Os + kTile * kChannels;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Do = D - 2, Ho = H - 2, Wo = W - 2;
@@ -125,7 +134,9 @@ thin_conv3d_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ 
   // ldmatrix lane roles: row lr of sub-matrix lj; mma's: group g, thread tg
   const int lr = lane & 7, lj = lane >> 3;
   const int g = lane >> 2, tg = lane & 3;
-  const bool vector_rows = (M % 8) == 0;
+  // a voxel's 16-byte chunk of 8 channels c lies at chunk c ^ swizzle(m)
+  auto swizzle = [](int m) { return (m >> 1) & 3; };
+  const bool vector_rows = (K % 8) == 0;
 
   // A thread takes voxels m, m + 1 (m even, so one row: Wo is even) and
   // every other (c, i, j), whose inputs p0..p3 give both voxels' three
@@ -198,37 +209,49 @@ thin_conv3d_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ 
           mma(acc[a][b], af[a], bf[b >> 1][(b & 1) * 2], bf[b >> 1][(b & 1) * 2 + 1]);
     }
 
-    // the sums, rounded, into the staging rows (by channel)
+    // the sums, rounded, into the staging rows (by voxel): channels k and
+    // k + 1 of a voxel are one 4-byte word; m and m + 8 share a swizzle
 #pragma unroll
     for (int a = 0; a < 2; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int m = warp * 32 + a * 16 + g, k = b * 8 + tg * 2;
-        Os[k * kRow + m] = round_bits(acc[a][b][0]);
-        Os[(k + 1) * kRow + m] = round_bits(acc[a][b][1]);
-        Os[k * kRow + m + 8] = round_bits(acc[a][b][2]);
-        Os[(k + 1) * kRow + m + 8] = round_bits(acc[a][b][3]);
+        const int m = warp * 32 + a * 16 + g, col = (b ^ swizzle(m)) * 8 + tg * 2;
+        *reinterpret_cast<uint32_t*>(Os + m * kChannels + col) =
+            round_bits(acc[a][b][0]) | (uint32_t)round_bits(acc[a][b][1]) << 16;
+        *reinterpret_cast<uint32_t*>(Os + (m + 8) * kChannels + col) =
+            round_bits(acc[a][b][2]) | (uint32_t)round_bits(acc[a][b][3]) << 16;
       }
     __syncthreads();
 
-    const bool whole = vector_rows && m0 + kTile <= M;
+    // each thread a voxel's 8 channels at a time, neighbouring threads
+    // neighbouring 16 bytes. Where K = 32 and the tile is whole, its output
+    // is one run (the index arithmetic of the general case cost 236
+    // registers against 158 and 10 % of the time, PERF.md)
+    const bool dense = K == kChannels && m0 + kTile <= M;
+    uint4* run = reinterpret_cast<uint4*>(y + (n * M + m0) * K);
 #pragma unroll
     for (int i = 0; i < kChannels * kTile / 8 / kThreads; ++i) {
       const int v = tid + i * kThreads;
-      const int r = v / (kTile / 8), col = (v % (kTile / 8)) * 8;
-      if (k0 + r >= K) continue;
-      uint16_t* dst = y + (n * K + k0 + r) * (long long)M + m0 + col;
-      if (whole) {
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(Os + r * kRow + col);
+      const int r = v / (kChannels / 8), c = v % (kChannels / 8), k = k0 + c * 8;
+      const uint16_t* src = Os + r * kChannels + (c ^ swizzle(r)) * 8;
+      if (dense) {
+        run[v] = *reinterpret_cast<const uint4*>(src);
+        continue;
+      }
+      if (m0 + r >= M || k >= K) continue;
+      uint16_t* dst = y + (n * M + m0 + r) * K + k;
+      if (vector_rows) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
       } else {
-        for (int e = 0; e < 8 && m0 + col + e < M; ++e) dst[e] = Os[r * kRow + col + e];
+        for (int e = 0; e < 8 && k + e < K; ++e) dst[e] = src[e];
       }
     }
   }
 }
 
 constexpr size_t smem_bytes(int C) {
-  return ((size_t)(padded_taps(C) + kChannels) * kRow + (size_t)kChannels * (padded_taps(C) + 8)) *
+  return ((size_t)padded_taps(C) * kRow + (size_t)kTile * kChannels +
+          (size_t)kChannels * (padded_taps(C) + 8)) *
          2;
 }
 static_assert(smem_bytes(kMaxChannels) <= 48 * 1024, "no opt-in to more shared memory");
@@ -267,13 +290,13 @@ int launch(const void* x, const void* wp, void* y, int N, int D, int H, int W, i
 
 // x: (N, C, D, H, W) contiguous bf16, 1 <= C <= 4, D, H >= 3, W >= 4 and
 // even, 4-byte aligned; wp: (ceil(K / 32) * 32, ceil(C * 27 / 16) * 16)
-// contiguous bf16, the (K, C * 27) weights zero-padded; y: (N, K, D - 2,
-// H - 2, W - 2) contiguous bf16. Launches on `stream` and returns
-// cudaGetLastError() after the launch.
+// contiguous bf16, the (K, C * 27) weights zero-padded; y: (N, D - 2, H -
+// 2, W - 2, K) contiguous bf16 (NDHWC), 16-byte aligned. Launches on
+// `stream` and returns cudaGetLastError() after the launch.
 extern "C" int thin_conv3d(const void* x, const void* wp, void* y, int N, int C, int D, int H,
                            int W, int K, void* stream) {
   if (N < 1 || C < 1 || C > kMaxChannels || D < 3 || H < 3 || W < 4 || W % 2 || K < 1 ||
-      (uintptr_t)x % 4)
+      (uintptr_t)x % 4 || (uintptr_t)y % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {

@@ -145,7 +145,10 @@ class Cardiac3DSegmenter:
         """The 3D U-Net of arXiv:1606.06650 for conf.model == "unet3d": input
         tiles of conf.volume_shape, filters3d and downsample3d its base
         width and depth, in eval mode (BatchNorm on its running
-        statistics), with no optimizer: it is served, not trained."""
+        statistics), with no optimizer: it is served, not trained. On the
+        card its 5-D parameters are channels_last_3d, the layout its
+        activations keep there (UNet3DCicek), so cuDNN transforms no
+        weight; the state_dict's keys and values are the same."""
         conf = self.conf
         if self.mesh is not None:
             raise ValueError("the unet3d model runs on one device, not on a mesh")
@@ -159,6 +162,8 @@ class Cardiac3DSegmenter:
             net.load_state_dict(state_dict)
         if conf.debug_nans:
             install_nan_checks(net)
+        if self.device.type == "cuda":
+            net = net.to(memory_format=torch.channels_last_3d)
         return net.to(self.device).eval()
 
     def shard_batch(self, batch):

@@ -190,7 +190,9 @@ class ValidConv3d(Conv3d):
     output is k - 1 shorter than the input's). `with_bias=False` leaves
     out the bias, for conv_norm's epilogue, which adds it. A 3x3x3 one of
     an input that `_thin_input` takes runs as the thin-input convolution,
-    and the bias is added after it as PyTorch adds cuDNN's."""
+    and the bias is added after it as PyTorch adds cuDNN's. Any other one
+    on the card takes its input in channels_last_3d, as UNet3DCicek runs
+    there (a copy only where the input is not already so)."""
 
     def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None):
         super().__init__(in_ch, out_ch, k, init=init, dtype=dtype)
@@ -199,11 +201,12 @@ class ValidConv3d(Conv3d):
     def forward(self, x, with_bias=True):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = self.bias.to(dt) if with_bias else None
-        x, weight = x.to(dt), self.weight.to(dt)
-        if self.kernel_size != (3, 3, 3) or not _thin_input(x, dt):
-            return F.conv3d(x, weight, bias)
-        y = thin_conv3d(x, weight)
-        return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+        weight = self.weight.to(dt)
+        if self.kernel_size == (3, 3, 3) and _thin_input(x, dt):
+            y = thin_conv3d(x.to(dt), weight)
+            return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+        layout = torch.channels_last_3d if x.is_cuda else torch.preserve_format
+        return F.conv3d(x.to(dt, memory_format=layout), weight, bias)
 
 
 class UpConv3d(nn.ConvTranspose3d):
@@ -222,6 +225,22 @@ class UpConv3d(nn.ConvTranspose3d):
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         return F.conv_transpose3d(x.to(dt), self.weight.to(dt), None, stride=2)
+
+
+class PointwiseConv3d(Conv3d):
+    """A 1x1x1 Conv3d computed as what it is, a linear map of each voxel's
+    channels: F.linear on the (N, D, H, W, C) view of an (N, C, D, H, W)
+    input, whose (N, D, H, W, K) result is returned as its (N, K, D, H, W)
+    view. Where the input is channels_last_3d both views are dense and
+    nothing is transposed; cuDNN runs a float32 convolution of such an
+    input as an NCDHW kernel behind a layout transform each way (PERF.md).
+    Conv3d's parameters, initialiser and dtype rule."""
+
+    def forward(self, x):
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        y = F.linear(x.permute(0, 2, 3, 4, 1).to(dt), self.weight.to(dt).flatten(1),
+                     self.bias.to(dt))
+        return y.permute(0, 4, 1, 2, 3)
 
 
 class BatchNorm3d(BatchNorm):
@@ -278,7 +297,20 @@ class UNet3DCicek(nn.Module):
     (D', H', W') = output_size((D, H, W)). Parameters and BatchNorm
     statistics stay f32; under a bf16 `dtype` every conv but the head
     computes in bf16; the head and the softmax compute in f32. BatchNorm
-    uses its running statistics in eval mode, the net's only use here."""
+    uses its running statistics in eval mode, the net's only use here.
+
+    The layout rule on the card: every activation from the first
+    convolution's output to the head is channels_last_3d (NDHWC in
+    memory), the layout cuDNN's sm90 convolution kernels read and write,
+    so that no convolution pays a transform each way. The first
+    convolution writes it (the thin-input kernel, or cuDNN on an input
+    ValidConv3d makes channels_last_3d); the epilogue, the max pools, the
+    up-convolutions, the crops and the concatenations keep their input's
+    layout, and the head reads it as a linear map of each voxel's channels
+    (PointwiseConv3d); the parameters are channels_last_3d on the card
+    (models/volumetric.py::Cardiac3DSegmenter._init_cicek). The logical
+    shapes, the values and the state_dict are those of the NCDHW net; on
+    the CPU the net runs NCDHW."""
 
     def __init__(self, in_channels=3, filters=32, depth=3, out_channels=3, dtype=None):
         super().__init__()
@@ -293,7 +325,7 @@ class UNet3DCicek(nn.Module):
             w = 2 * widths[level]
             setattr(self, "synthesis_%d" % i, ValidBlock3D(cin + w, w, w, dtype))
             cin = w
-        self.head = Conv3d(cin, out_channels, 1, init="he_normal")
+        self.head = PointwiseConv3d(cin, out_channels, 1, init="he_normal")
 
     def output_size(self, size):
         """The output's (D, H, W) of an input tile of `size`; ValueError

@@ -409,7 +409,8 @@ def thin_conv3d(x, wp, K):
       K: the output channels.
 
     Returns:
-      (N, K, D - 2, H - 2, W - 2) bfloat16, contiguous.
+      (N, K, D - 2, H - 2, W - 2) bfloat16, contiguous in channels_last_3d
+      (NDHWC in memory, the layout of the 3D U-Net's later convolutions).
     """
     _cuda(x, "thin_conv3d", "x")
     return _launch(THIN_CONV3D, "thin_conv3d", x, x, wp, int(K))

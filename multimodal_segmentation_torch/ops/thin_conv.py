@@ -16,6 +16,11 @@ kernel sums in f32, so the two differ by f32's round-off before the
 rounding). No bias: the caller adds it as PyTorch adds cuDNN's. While
 autograd records, the output carries the convolution's own backward
 (cuDNN's on the card).
+
+Both read an (N, C, D, H, W) input and give the (N, K, D - 2, H - 2, W -
+2) output in channels_last_3d (NDHWC in memory): on the card the 3D U-Net
+runs channels_last_3d from its first convolution on, so that cuDNN's
+NDHWC kernels need no layout transform (nn/unet3d.py::UNet3DCicek).
 """
 
 import torch
@@ -38,15 +43,15 @@ def pack_weight(weight):
 
 def thin_conv3d_plain(x, weight):
     """The valid 3x3x3 convolution of (N, C, D, H, W) x by (K, C, 3, 3, 3)
-    weight as the kernel computes it, in x's dtype."""
+    weight as the kernel computes it, in x's dtype and channels_last_3d."""
     n, c, d, h, w = x.shape
     k = weight.shape[0]
-    out = (d - 2, h - 2, w - 2)
     cols = x.unfold(2, 3, 1).unfold(3, 3, 1).unfold(4, 3, 1)
     cols = cols.permute(0, 2, 3, 4, 1, 5, 6, 7).reshape(n, -1, c * 27)
     cols = F.pad(cols.double(), (0, -(c * 27) % 16))
     wp = pack_weight(weight).double()[:k]
-    return (wp @ cols.transpose(1, 2)).to(x.dtype).view(n, k, *out)
+    y = (cols @ wp.T).to(x.dtype).view(n, d - 2, h - 2, w - 2, k)
+    return y.permute(0, 4, 1, 2, 3)
 
 
 def _forward(x, weight):
@@ -82,7 +87,7 @@ def thin_conv3d(x, weight):
     """The valid 3x3x3 convolution of (N, C, D, H, W) x by (K, C, 3, 3, 3)
     weight in x's dtype: the CUDA kernel for a CUDA tensor (bfloat16, C <=
     MAX_CHANNELS, W even), the plain version on the CPU. (N, K, D - 2, H -
-    2, W - 2), contiguous."""
+    2, W - 2), contiguous in channels_last_3d."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _ThinConv3d.apply(x, weight)
     return _forward(x, weight)

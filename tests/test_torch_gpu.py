@@ -833,15 +833,18 @@ def test_unet3d_cicek_predict_on_the_card(cuda, monkeypatch, dtype):
     (2, 3, 32, 12, 13, 14, True), (1, 1, 4, 3, 3, 4, True), (3, 4, 40, 9, 10, 12, True),
     (2, 2, 3, 6, 20, 8, True), (2, 3, 4, 92, 92, 92, True), (1, 2, 64, 5, 34, 34, True),
     (2, 4, 8, 5, 9, 10, True), (1, 1, 70, 4, 7, 8, True), (2, 3, 32, 12, 13, 14, False),
+    (2, 3, 96, 7, 9, 10, True),
 ])
 def test_thin_conv3d_kernel_matches_plain(cuda, N, C, K, D, H, W, aligned):
     """The thin-input convolution kernel against its plain version (an
     exact sum rounded once) and against cuDNN's F.conv3d, in bf16 on 1-4
-    input channels (each instantiation), 3-70 output channels (one and
-    three blocks of 32), tiles that do and do not end a sample, an input
-    that is not 4-byte aligned (the wrapper copies it) and the
-    base-width-4 U-Net's tile: every output within one rounding of either
-    (the kernel sums in f32); one launch a call."""
+    input channels (each instantiation), 3-96 output channels (one and
+    three blocks of 32; K = 32, K > 32, and K not a multiple of 8, whose
+    voxels' runs the kernel writes element by element), tiles that do and
+    do not end a sample, an input that is not 4-byte aligned (the wrapper
+    copies it) and the base-width-4 U-Net's tile: every output within one
+    rounding of either (the kernel sums in f32), in channels_last_3d with
+    the plain version's strides; one launch a call."""
     dtype = torch.bfloat16
     g = torch.Generator(device=cuda).manual_seed(C * 100 + K)
     x = torch.randn(N, C, D, H, W, device=cuda, generator=g).to(dtype)
@@ -854,9 +857,11 @@ def test_thin_conv3d_kernel_matches_plain(cuda, N, C, K, D, H, W, aligned):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts()["thin_conv3d"] == 1
     assert got.shape == (N, K, D - 2, H - 2, W - 2) and got.dtype == dtype
-    assert got.is_contiguous() and torch.isfinite(got).all()
+    assert got.is_contiguous(memory_format=torch.channels_last_3d) and torch.isfinite(got).all()
+    plain = thin_conv.thin_conv3d_plain(x, w)
+    assert got.stride() == plain.stride()
     eps = torch.finfo(dtype).eps
-    for ref in (thin_conv.thin_conv3d_plain(x, w), F.conv3d(x, w)):
+    for ref in (plain, F.conv3d(x, w)):
         gap = (got.float() - ref.float()).abs()
         assert (gap <= eps * ref.float().abs() + 1e-3).all(), gap.max().item()
 
@@ -934,7 +939,9 @@ def test_unet3d_first_conv_takes_the_thin_kernel(cuda, monkeypatch):
     thin-input path taken out, one F.conv3d or one bf16 matmul in its
     place (PERF.md), so the kernel is not the cause. There the
     first convolution runs as the thin-input kernel, no kernel is cuDNN's
-    legacy implicit_convolveNd_sgemm, one launch. Here, with the benchmark
+    legacy implicit_convolveNd_sgemm, one launch, and no kernel is one of
+    cuDNN's layout transforms (nchwToNhwc, nhwcToNchw): the net runs
+    channels_last_3d from the kernel's output on. Here, with the benchmark
     maker's weights: one launch, none with the path taken out; the
     probabilities' mean gap from the same forward through cuDNN (the
     thin-input path taken out) no larger than that forward's own gap from
@@ -959,6 +966,7 @@ def test_unet3d_first_conv_takes_the_thin_kernel(cuda, monkeypatch):
     names = profiled["names"]
     assert not any("implicit_convolveNd_sgemm" in n for n in names), names
     assert any("thin_conv3d_kernel" in n for n in names), names
+    assert not any("nchwToNhwc" in n or "nhwcToNchw" in n for n in names), names
 
     conf = unet3d_cicek()
     state = volumes.make_weights(MODEL, types.SimpleNamespace(**dataclasses.asdict(conf)),

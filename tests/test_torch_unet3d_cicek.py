@@ -348,19 +348,107 @@ def test_valid_conv_gradients_through_the_thin_path(monkeypatch, with_bias):
 @pytest.mark.parametrize("channels, out_channels", [(1, 4), (2, 33), (3, 32), (4, 8), (4, 70)])
 def test_thin_conv_plain_is_the_convolution(channels, out_channels):
     """The kernel's plain version against F.conv3d: within f32's round-off
-    in float32; its packed weights zero past (K, C * 27), rows a multiple
-    of 32 and taps of 16."""
+    in float32, in channels_last_3d as the kernel writes it; its packed
+    weights zero past (K, C * 27), rows a multiple of 32 and taps of 16."""
     r = np.random.RandomState(channels * 100 + out_channels)
     x = torch.from_numpy(r.uniform(-1, 1, (2, channels, 5, 7, 6)).astype(np.float32))
     w = torch.from_numpy(r.normal(0, 0.2, (out_channels, channels, 3, 3, 3)).astype(np.float32))
     got = thin_conv.thin_conv3d(x, w)
-    assert got.shape == (2, out_channels, 3, 5, 4) and got.is_contiguous()
+    assert got.shape == (2, out_channels, 3, 5, 4)
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
     assert (got - torch.nn.functional.conv3d(x, w)).abs().max().item() <= 1e-5
     wp = thin_conv.pack_weight(w)
     taps = channels * 27
     assert wp.shape == (-(-out_channels // 32) * 32, -(-taps // 16) * 16)
     assert torch.equal(wp[:out_channels, :taps], w.reshape(out_channels, taps))
     assert not wp[out_channels:].any() and not wp[:, taps:].any()
+
+
+def _ncdhw_plain(x, weight):
+    """The plain version as it was written when the kernel wrote NCDHW: the
+    packed weights times the im2col matrix's transpose, (N, K, D', H', W')
+    contiguous."""
+    n, c, d, h, w = x.shape
+    k = weight.shape[0]
+    cols = x.unfold(2, 3, 1).unfold(3, 3, 1).unfold(4, 3, 1)
+    cols = cols.permute(0, 2, 3, 4, 1, 5, 6, 7).reshape(n, -1, c * 27)
+    cols = torch.nn.functional.pad(cols.double(), (0, -(c * 27) % 16))
+    wp = thin_conv.pack_weight(weight).double()[:k]
+    return (wp @ cols.transpose(1, 2)).to(x.dtype).view(n, k, d - 2, h - 2, w - 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels, out_channels", [(1, 4), (3, 32), (4, 70)])
+def test_thin_conv_plain_writes_channels_last_3d(channels, out_channels, dtype):
+    """The plain version gives the values it gave when it wrote NCDHW, bit
+    for bit, now with channels_last_3d strides (K = 32 and K > 32 among
+    them), as the kernel writes them on the card."""
+    r = np.random.RandomState(channels * 10 + out_channels)
+    x = torch.from_numpy(r.uniform(-1, 1, (2, channels, 6, 5, 8)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(r.normal(0, 0.2, (out_channels, channels, 3, 3, 3))
+                         .astype(np.float32)).to(dtype)
+    got = thin_conv.thin_conv3d_plain(x, w)
+    k = out_channels
+    assert got.shape == (2, k, 4, 3, 6) and got.dtype == dtype
+    assert got.stride() == (4 * 3 * 6 * k, 1, 3 * 6 * k, 6 * k, k)
+    assert torch.equal(got, _ncdhw_plain(x, w))
+
+
+def test_forward_keeps_channels_last_3d_on_the_thin_path(monkeypatch):
+    """With the thin-input path forced on (channels_last_3d out, as the
+    kernel writes) and the parameters in channels_last_3d, as _init_cicek
+    leaves them on the card, every ValidBlock3D's and up-convolution's
+    output of a base-width-4 forward is channels_last_3d (forward hooks):
+    the epilogue's view, the pools, the up-convolutions and the
+    concatenations keep the layout. The probabilities keep their logical
+    (N, C, D', H', W') shape."""
+    conf, state, _ = _case((6, 7, 4), seed=52)
+    _, net = _program(conf, state)
+    net = net.to(memory_format=torch.channels_last_3d)
+    _forced_thin(monkeypatch)
+    seen = []
+    for name, m in net.named_modules():
+        if isinstance(m, (ValidBlock3D, unet3d.UpConv3d)):
+            m.register_forward_hook(lambda mod, i, out, name=name: seen.append(
+                (name, out.is_contiguous(memory_format=torch.channels_last_3d))))
+    x = torch.from_numpy(np.random.RandomState(3).uniform(-1, 1, (2, 3, 92, 92, 92))
+                         .astype(np.float32))
+    with torch.no_grad():
+        out = net(x)
+    assert out.shape == (2, 3, 4, 4, 4)
+    names = [n for n, _ in seen]
+    assert names == ["analysis_%d" % i for i in range(4)] + [
+        "%s_%d" % (kind, i) for i in range(3) for kind in ("upconv", "synthesis")]
+    assert all(cl for _, cl in seen), seen
+
+
+def test_predict_in_channels_last_3d_equals_the_ncdhw_predict(monkeypatch):
+    """The base-width-4 net's predict on a (6, 7, 4) volume through the
+    thin-input path, with the net in channels_last_3d (the path's output
+    and the parameters), equals predict through the same path in NCDHW
+    (its output made contiguous, as the kernel wrote it before) within
+    1e-5 in float32: the same arithmetic, which the CPU's convolutions sum
+    in another order in the other layout. The parameters keep their keys
+    and values, and only their strides change; a CPU segmenter's net
+    stays NCDHW."""
+    conf, state, v = _case((6, 7, 4), seed=53)
+    seg, net = _program(conf, state)
+    assert all(p.is_contiguous() for p in net.parameters())
+    before = {k: t.clone() for k, t in net.state_dict().items()}
+    _forced_thin(monkeypatch)
+    monkeypatch.setattr(unet3d, "thin_conv3d",
+                        lambda x, w: thin_conv.thin_conv3d(x, w).contiguous())
+    ncdhw = seg.predict(net, v)
+    monkeypatch.undo()
+    _forced_thin(monkeypatch)
+    net = net.to(memory_format=torch.channels_last_3d)
+    got = seg.predict(net, v)
+    assert got.shape == ncdhw.shape == (1, 6, 7, 4, 3) and got.is_contiguous()
+    assert (got - ncdhw).abs().max().item() <= 1e-5
+    after = net.state_dict()
+    assert list(after) == list(before)
+    assert all(torch.equal(before[k], after[k]) for k in before)
+    assert after["analysis_0.conv_0.weight"].is_contiguous(memory_format=torch.channels_last_3d)
 
 
 def test_predict_through_the_thin_path_equals_predict(monkeypatch):
