@@ -189,6 +189,34 @@ def unet3d_cicek() -> ExperimentConfig:
     )
 
 
+# the swin_unetr model's sliding-window overlap (models/volumetric.py):
+# Swin UNETR's BraTS inference, 0.5 (MONAI's default is 0.25)
+SWIN_UNETR_OVERLAP = 0.5
+
+
+def swin_unetr_brats() -> ExperimentConfig:
+    """Swin UNETR (arXiv:2201.01266) at its published BraTS 2021 widths,
+    served by MONAI's sliding window (models/volumetric.py, model
+    'swin_unetr', overlap SWIN_UNETR_OVERLAP): 128^3 windows of 4 MRI
+    sequences (volume_shape as (D, H, W, C)), feature size 48 (filters3d),
+    depths 2-2-2-2, heads 3-6-12-24, window 7^3 (nn/swin_unetr.py), 3
+    sigmoid outputs (num_masks: TC, WT, ET), 4 windows a forward
+    (batch_size), bf16 activations. Not a preset, as unet3d_cicek."""
+    return ExperimentConfig(
+        folder="swin_unetr_brats",
+        model="swin_unetr",
+        executor="cardiac3d",
+        dataset_name="brats",
+        test_dataset="brats",
+        batch_size=4,
+        num_masks=3,
+        input_shape=(128, 128, 4),
+        volume_shape=(128, 128, 128, 4),
+        filters3d=48,
+        compute_dtype="bfloat16",
+    )
+
+
 PRESETS = {
     "mmsdnet_config_chaos": mmsdnet_chaos,
     "dafnet_config_chaos": dafnet_chaos,

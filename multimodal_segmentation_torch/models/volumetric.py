@@ -35,20 +35,39 @@ a volume (slices = D, tiles) with children `predict3d.inputs` (the copy
 to the device and the mirror padding), `predict3d.tiles` (gathering a
 batch of tiles), `predict3d.net` (the forward) and `predict3d.stitch`
 (utils/tracing.py).
+
+With conf.model == "swin_unetr" the segmenter holds Swin UNETR
+(nn/swin_unetr.py::SwinUNETR, arXiv:2201.01266), for inference alone, on
+one device: `predict` serves a whole study by MONAI's sliding window
+(sliding_window_inference, mode "constant"): windows of
+conf.volume_shape[:3] on a stride of int(roi * (1 - overlap)) a axis,
+overlap config.SWIN_UNETR_OVERLAP, the last flush with the study's end
+(`window_starts`; an axis shorter than the window is zero-padded around
+the study first), run
+conf.batch_size at a time; each voxel's logits are summed over the
+windows that cover it in float32, divided by their count and passed
+through a sigmoid: (B, D, H, W, num_masks) probabilities. Its spans are
+the unet3d model's, `predict_volume` with slices = D and windows, and
+inside `predict3d.net` the net's own `predict3d.attention` and
+`predict3d.resblock`.
 """
 
 import csv
+import itertools
 import os
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from multimodal_segmentation_torch.config import SWIN_UNETR_OVERLAP
 from multimodal_segmentation_torch.data.loader_factory import init_loader
 from multimodal_segmentation_torch.losses import combined_dice_bce, dice_np_volume
 from multimodal_segmentation_torch.models import full_f32_matmuls
 from multimodal_segmentation_torch.models.base import resolve_device
 from multimodal_segmentation_torch.nn.blocks import flax_init_
+from multimodal_segmentation_torch.nn.swin_unetr import SwinUNETR
 from multimodal_segmentation_torch.nn.unet3d import UNet3D, UNet3DCicek
 from multimodal_segmentation_torch.ops.augment import random_rotate_volumes, random_rotation_angles
 from multimodal_segmentation_torch.parallel.collectives import all_reduce_flat_, gather
@@ -80,6 +99,22 @@ def mirror_index(size, before, total, device):
     period = 2 * (size - 1)
     r = torch.remainder(torch.arange(-before, total - before, device=device), period)
     return torch.where(r < size, r, period - r)
+
+
+def window_starts(size, roi, overlap):
+    """The window starts along each axis of `size` (each at least the
+    roi's), MONAI's rule (sliding_window_inference's _get_scan_interval and
+    dense_patch_slices): a stride of int(roi * (1 - overlap)), at least 1,
+    or the roi where the axis equals it; windows until one reaches the
+    axis's end, the last moved back to end flush with it."""
+    out = []
+    for s, r in zip(size, roi):
+        step = r if s == r else max(int(r * (1 - overlap)), 1)
+        n = 1
+        while (n - 1) * step + r < s:
+            n += 1
+        out.append([min(i * step, s - r) for i in range(n)])
+    return out
 
 
 def tile_view(t, counts, step, size, axes):
@@ -127,6 +162,8 @@ class Cardiac3DSegmenter:
         conf = self.conf
         if conf.model == "unet3d":
             return self._init_cicek(seed, state_dict), None
+        if conf.model == "swin_unetr":
+            return self._init_swin(seed, state_dict), None
         net = UNet3D(in_channels=conf.volume_shape[-1], filters=conf.filters3d,
                      downsample=conf.downsample3d, out_channels=conf.num_masks + 1,
                      dtype=self.dtype)
@@ -158,6 +195,28 @@ class Cardiac3DSegmenter:
         net.output_size(conf.volume_shape[:3])
         if state_dict is None:
             flax_init_(net, torch.Generator().manual_seed(seed))
+        else:
+            net.load_state_dict(state_dict)
+        if conf.debug_nans:
+            install_nan_checks(net)
+        if self.device.type == "cuda":
+            net = net.to(memory_format=torch.channels_last_3d)
+        return net.to(self.device).eval()
+
+    def _init_swin(self, seed, state_dict):
+        """Swin UNETR (arXiv:2201.01266) for conf.model == "swin_unetr":
+        volume_shape[-1] input sequences, filters3d its feature size,
+        num_masks sigmoid outputs, in eval mode with no optimizer; its
+        weights MONAI's draws (SwinUNETR.init_) from a generator seeded
+        with `seed`, or `state_dict`. On the card its 5-D parameters are
+        channels_last_3d, the layout of its convolutional path there."""
+        conf = self.conf
+        if self.mesh is not None:
+            raise ValueError("the swin_unetr model runs on one device, not on a mesh")
+        net = SwinUNETR(in_channels=conf.volume_shape[-1], out_channels=conf.num_masks,
+                        feature_size=conf.filters3d, dtype=self.dtype)
+        if state_dict is None:
+            net.init_(torch.Generator().manual_seed(seed))
         else:
             net.load_state_dict(state_dict)
         if conf.debug_nans:
@@ -201,6 +260,10 @@ class Cardiac3DSegmenter:
         loss / n_space, whose gradients summed over 'space' (the halos and
         norm statistics carry each slab's part to its neighbours) and
         averaged over 'data' are the global loss's."""
+        if self.conf.model == "swin_unetr":
+            raise NotImplementedError(
+                "the swin_unetr model (Swin UNETR, arXiv:2201.01266) is served by predict "
+                "only: its training is not implemented")
         if self.conf.model == "unet3d":
             raise NotImplementedError(
                 "the unet3d model (the 3D U-Net of arXiv:1606.06650) is served by predict and "
@@ -240,9 +303,12 @@ class Cardiac3DSegmenter:
         split over 'space' each rank runs its D-slab of every study and
         the slabs are gathered: any batch size works, as the JAX
         package's predict shards the depth only (:138-142). The unet3d
-        model serves each volume by overlap-tile (`predict_tiled`)."""
-        if self.conf.model == "unet3d":
-            out = [self.predict_tiled(params, volumes[i:i + 1]) for i in range(len(volumes))]
+        model serves each volume by overlap-tile (`predict_tiled`), the
+        swin_unetr model each study by sliding window (`predict_sliding`),
+        whose outputs are num_masks sigmoid probabilities."""
+        if self.conf.model in ("unet3d", "swin_unetr"):
+            one = self.predict_tiled if self.conf.model == "unet3d" else self.predict_sliding
+            out = [one(params, volumes[i:i + 1]) for i in range(len(volumes))]
             return out[0] if len(out) == 1 else torch.cat(out)
         if self.space is None or self.space.size == 1:
             return params(torch.as_tensor(volumes, device=self.device))
@@ -286,6 +352,51 @@ class Cardiac3DSegmenter:
                     stitched[at] = probs.permute(0, 2, 3, 4, 1)
             with tracing.span("predict3d.stitch"):
                 return out[:shape[0], :shape[1], :shape[2]].contiguous()[None]
+
+    @torch.inference_mode()
+    def predict_sliding(self, net, volume):
+        """(1, D, H, W, num_masks) f32 sigmoid probabilities on the device of
+        a (1, D, H, W, C) study (array or tensor) by the sliding window
+        through the swin_unetr model `net` (module docstring)."""
+        roi = tuple(self.conf.volume_shape[:3])
+        shape = tuple(volume.shape[1:4])
+        grown = tuple(max(s, r) for s, r in zip(shape, roi))
+        before = tuple((g - s) // 2 for g, s in zip(grown, shape))
+        starts = window_starts(grown, roi, SWIN_UNETR_OVERLAP)
+        corners = list(itertools.product(*starts))
+        dev = self.device
+        with tracing.span("predict_volume", slices=int(shape[0]), windows=len(corners)):
+            with tracing.span("predict3d.inputs"):
+                x = torch.as_tensor(volume, device=dev)[0].to(self.dtype).permute(3, 0, 1, 2)
+                if grown != shape:
+                    pad = []
+                    for g, s, b in reversed(list(zip(grown, shape, before))):
+                        pad += [b, g - s - b]
+                    x = F.pad(x, pad)
+                x = x.contiguous()
+                total = torch.zeros((*grown, net.out_channels), device=dev)
+                # each axis's count of the windows over a position; a voxel's
+                # count is the product of its three
+                cover = [torch.zeros(g, device=dev) for g in grown]
+                for c, axis, r in zip(cover, starts, roi):
+                    for s in axis:
+                        c[s:s + r] += 1
+            for b in range(0, len(corners), self.conf.batch_size):
+                part = corners[b:b + self.conf.batch_size]
+                with tracing.span("predict3d.tiles"):
+                    batch = torch.stack([x[:, d:d + roi[0], h:h + roi[1], w:w + roi[2]]
+                                         for d, h, w in part])
+                with tracing.span("predict3d.net"):
+                    logits = net(batch)
+                with tracing.span("predict3d.stitch"):
+                    for (d, h, w), z in zip(part, logits.permute(0, 2, 3, 4, 1)):
+                        total[d:d + roi[0], h:h + roi[1], w:w + roi[2]] += z
+            with tracing.span("predict3d.stitch"):
+                total /= (cover[0][:, None, None, None] * cover[1][None, :, None, None]
+                          * cover[2][None, None, :, None])
+                out = total[before[0]:before[0] + shape[0], before[1]:before[1] + shape[1],
+                            before[2]:before[2] + shape[2]]
+                return out.contiguous().sigmoid_()[None]
 
     def evaluate(self, params, volumes, masks, batch=2):
         """Per-study whole-volume binarised Dice of the foreground classes,

@@ -187,35 +187,42 @@ def _thin_input(x, dt):
 
 class ValidConv3d(Conv3d):
     """A cubic Conv3d with 'VALID' padding (no padding: each side of the
-    output is k - 1 shorter than the input's). `with_bias=False` leaves
-    out the bias, for conv_norm's epilogue, which adds it. A 3x3x3 one of
-    an input that `_thin_input` takes runs as the thin-input convolution,
-    and the bias is added after it as PyTorch adds cuDNN's. Any other one
-    on the card takes its input in channels_last_3d, as UNet3DCicek runs
+    output is k - 1 shorter than the input's), or with `padding` p the
+    input zero-padded by p voxels on each side first (1: Swin UNETR's
+    'same' 3x3x3 convolutions). `with_bias=False` leaves out the bias, for
+    conv_norm's epilogue, which adds it; a convolution whose bias was
+    taken away (None) has none. A 3x3x3 one of an input that `_thin_input`
+    takes runs as the thin-input convolution (of the padded input), and
+    the bias is added after it as PyTorch adds cuDNN's. Any other one on
+    the card takes its input in channels_last_3d, as UNet3DCicek runs
     there (a copy only where the input is not already so)."""
 
-    def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None):
+    def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None, padding=0):
         super().__init__(in_ch, out_ch, k, init=init, dtype=dtype)
-        self.padding = (0, 0, 0)
+        self.padding = (padding,) * 3
 
     def forward(self, x, with_bias=True):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        bias = self.bias.to(dt) if with_bias else None
+        bias = self.bias.to(dt) if with_bias and self.bias is not None else None
         weight = self.weight.to(dt)
         if self.kernel_size == (3, 3, 3) and _thin_input(x, dt):
-            y = thin_conv3d(x.to(dt), weight)
+            x = x.to(dt)
+            if any(self.padding):
+                x = F.pad(x, (self.padding[0],) * 6)
+            y = thin_conv3d(x, weight)
             return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
         layout = torch.channels_last_3d if x.is_cuda else torch.preserve_format
-        return F.conv3d(x.to(dt, memory_format=layout), weight, bias)
+        return F.conv3d(x.to(dt, memory_format=layout), weight, bias, padding=self.padding)
 
 
 class UpConv3d(nn.ConvTranspose3d):
     """2x2x2 up-convolution with stride 2 and no bias, keeping the channel
-    count; computes in `dtype` as Conv3d. Each output voxel takes one tap
-    of each input channel, so its he_normal fan-in is the input channels."""
+    count unless `out_channels` gives another; computes in `dtype` as
+    Conv3d. Each output voxel takes one tap of each input channel, so its
+    he_normal fan-in is the input channels."""
 
-    def __init__(self, channels, dtype=None):
-        super().__init__(channels, channels, 2, stride=2, bias=False)
+    def __init__(self, channels, dtype=None, out_channels=None):
+        super().__init__(channels, out_channels or channels, 2, stride=2, bias=False)
         self.dtype = dtype
 
     def flax_init_(self, generator):
@@ -234,12 +241,13 @@ class PointwiseConv3d(Conv3d):
     view. Where the input is channels_last_3d both views are dense and
     nothing is transposed; cuDNN runs a float32 convolution of such an
     input as an NCDHW kernel behind a layout transform each way (PERF.md).
-    Conv3d's parameters, initialiser and dtype rule."""
+    Conv3d's parameters, initialiser and dtype rule; a bias taken away
+    (None) adds nothing."""
 
     def forward(self, x):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        y = F.linear(x.permute(0, 2, 3, 4, 1).to(dt), self.weight.to(dt).flatten(1),
-                     self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.linear(x.permute(0, 2, 3, 4, 1).to(dt), self.weight.to(dt).flatten(1), bias)
         return y.permute(0, 4, 1, 2, 3)
 
 

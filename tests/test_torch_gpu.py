@@ -998,6 +998,136 @@ def test_unet3d_first_conv_takes_the_thin_kernel(cuda, monkeypatch):
     assert gap <= rounding
 
 
+_SWIN_PROFILE = r"""
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from benchmark.harness.program_spans import attribute
+from benchmark.harness.trace import Trace, kernel_kind
+from multimodal_segmentation_torch import config
+from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+from multimodal_segmentation_torch.ops import cuda_kernels
+from multimodal_segmentation_torch.utils import tracing
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+seg = Cardiac3DSegmenter(config.swin_unetr_brats(), device="cuda")
+net, _ = seg.init(0)
+v = torch.rand(1, 128, 128, 160, 4).numpy()
+seg.predict(net, v)
+torch.cuda.synchronize()
+cuda_kernels.reset_launch_counts()
+tracing.clear()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    seg.predict(net, v)
+    torch.cuda.synchronize()
+a = attribute(Trace(prof, 1.0), tracing.spans())
+kinds = {}
+for owner in ("predict3d.attention", "predict3d.resblock"):
+    kinds[owner] = sorted({kernel_kind(n) for n in a.ops[owner]})
+print(json.dumps({"launches": cuda_kernels.launch_counts(),
+                  "device_s": dict(a.device_s), "kinds": kinds,
+                  "names": sorted({n for ops in a.ops.values() for n in ops})}))
+"""
+
+
+def test_swin_unetr_spans_on_the_card(cuda):
+    """One published-width bf16 predict of a (128, 128, 160) study (1 x 1 x 2
+    windows, one forward), profiled CUDA-only in a process of its own (a
+    second profiling session in the file's process can record nothing,
+    PERF.md): device time lands in `predict3d.attention` and
+    `predict3d.resblock` as well as in `predict3d.net`; the first
+    convolution runs as the thin-input kernel, once a window; nothing that
+    the benchmark files under convolution runs inside an attention span;
+    no kernel is one of cuDNN's layout transforms."""
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", _SWIN_PROFILE], cwd=repo, capture_output=True,
+                         text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    got = json.loads(run.stdout.splitlines()[-1])
+    print(json.dumps(got))
+    for owner in ("predict3d.attention", "predict3d.resblock", "predict3d.net"):
+        assert got["device_s"].get(owner, 0) > 0, got["device_s"]
+    assert got["launches"]["thin_conv3d"] == 2
+    assert "convolution" not in got["kinds"]["predict3d.attention"], got["kinds"]
+    assert not any("nchwToNhwc" in n or "nhwcToNchw" in n for n in got["names"]), got["names"]
+
+
+def test_swin_unetr_published_forward_on_the_card(cuda):
+    """A published-width bf16 forward of 4 windows of 128^3 x 4 (the
+    benchmark maker's weights, rendered studies): 4 thin-input launches (enc0's first convolution, one a window); the
+    sigmoid probabilities' mean gap from the float32 reference's between a
+    quarter and twice the gap of the reference rounding at bf16, and under
+    half of the reference's at fp8."""
+    import types
+
+    from benchmark.reference.precision import set_precision
+    from benchmark.reference.swin_unetr import MODEL
+    from benchmark.traffic import swin_weights, volumes
+    from multimodal_segmentation_torch.config import swin_unetr_brats
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+
+    conf = swin_unetr_brats()
+    ns = types.SimpleNamespace(**dataclasses.asdict(conf))
+    state = swin_weights.make_weights(MODEL, ns, {"depths": [155, 155], "hw": [240, 240],
+                                                  "blobs": 6}, 11, cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.stack([volumes.render((128, 128, 128), 4, 6, g, cuda).permute(3, 0, 1, 2)
+                     for _ in range(4)]).contiguous()
+    net, _ = Cardiac3DSegmenter(conf, device=cuda).init(state_dict=state)
+    with torch.inference_mode():
+        cuda_kernels.reset_launch_counts()
+        got = torch.sigmoid(net(x.bfloat16()))
+        torch.cuda.synchronize()
+        launches = cuda_kernels.launch_counts()
+    assert launches["thin_conv3d"] == 4, launches
+    del net
+    refs = {}
+    for precision in ("float32", "bfloat16", "fp8"):
+        model = MODEL(ns)
+        model.load_state_dict(state)
+        model = set_precision(model.to(cuda), precision).eval()
+        with torch.no_grad():
+            refs[precision] = torch.sigmoid(model(x))
+        del model
+        torch.cuda.empty_cache()
+    gap = (got - refs["float32"]).abs().mean().item()
+    rounding = (refs["bfloat16"] - refs["float32"]).abs().mean().item()
+    fp8 = (refs["fp8"] - refs["float32"]).abs().mean().item()
+    print("swin: program %.3g, bf16 reference %.3g, fp8 reference %.3g; program's max %.3g"
+          % (gap, rounding, fp8, (got - refs["float32"]).abs().max().item()))
+    del refs, got, x, state
+    torch.cuda.empty_cache()
+    assert 0.25 * rounding <= gap <= 2.0 * rounding
+    assert gap < 0.5 * fp8
+
+
+def test_swin_unetr_tiny_predict_on_the_card_matches_cpu(cuda):
+    """Feature size 12, 64^3 windows, a (64, 67, 70) study in float32: the
+    card's predict within 1e-4 of the CPU's (cuDNN, cuBLAS and the
+    memory-efficient attention sum in other orders)."""
+    import types
+
+    from benchmark.reference.swin_unetr import MODEL
+    from benchmark.traffic import swin_weights, volumes
+    from multimodal_segmentation_torch.config import swin_unetr_brats
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+
+    conf = dataclasses.replace(swin_unetr_brats(), volume_shape=(64, 64, 64, 4), filters3d=12,
+                               batch_size=2, compute_dtype="float32")
+    state = swin_weights.make_weights(MODEL, types.SimpleNamespace(**dataclasses.asdict(conf)),
+                                      {"depths": [64, 64], "hw": [66, 66], "blobs": 4}, 3, "cpu")
+    v = volumes.render((64, 67, 70), 4, 4, torch.Generator().manual_seed(4), "cpu").numpy()[None]
+    seg = Cardiac3DSegmenter(conf, device=cuda)
+    got = seg.predict(seg.init(state_dict={k: t.to(cuda) for k, t in state.items()})[0], v)
+    cpu = Cardiac3DSegmenter(conf, device="cpu")
+    ref = cpu.predict(cpu.init(state_dict=state)[0], v)
+    assert got.shape == (1, 64, 67, 70, 3) and got.is_cuda
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
 # ----------------------------------------------------------- training step
 
 def _expert_batch(conf, seed=0):
