@@ -29,7 +29,10 @@ Phases, one JSON line each:
                 plain chain's device time too; `thin_conv3d`: the 3D
                 U-Net's first convolution at 16 and 2 tiles in bf16
                 against its plain version and cuDNN, and one
-                published-width forward's launches; `launch_path`: host us
+                published-width forward's launches; `same_conv3d`: Swin
+                UNETR's 48-output-channel convolutions at their four
+                shapes in bf16 against the plain version and cuDNN, and
+                one published-width window's launches; `launch_path`: host us
                 of each part of a wrapper's launch; `flow`: tps_flow_dbg
                 at the tool's shape and at B1's, the stages check of B1
                 against a plain blend at its locations, the gap to
@@ -388,18 +391,19 @@ def call_bound(entry, *inputs):
     return {"bound_ms": 1e3 * s}
 
 
-def work_bound(moved, flops, f64_flops=0):
+def work_bound(moved, flops, f64_flops=0, bf16_flops=0):
     """The bound of work that benchmark/flops/kernels.py does not count: the
     larger of `moved` bytes over the HBM rate and the operations' time,
-    `flops` over the f32 rate plus `f64_flops` over the f64 rate
-    (benchmark/flops/peaks.py)."""
+    `flops` over the f32 rate plus `f64_flops` over the f64 rate plus
+    `bf16_flops` over the bf16 tensor-core rate (benchmark/flops/peaks.py)."""
     from benchmark.flops import peaks
 
     t_bytes = moved / peaks.HBM_BYTES_PER_S
-    t_ops = flops / peaks.F32_FLOPS + f64_flops / peaks.F64_FLOPS
+    t_ops = (flops / peaks.F32_FLOPS + f64_flops / peaks.F64_FLOPS
+             + bf16_flops / peaks.BF16_FLOPS)
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": moved, "flops": flops, "f64_flops": f64_flops}
+            "bytes": moved, "flops": flops, "f64_flops": f64_flops, "bf16_flops": bf16_flops}
 
 
 def measure(bufs, kernel, plain, library, bound, plain_iters=10):
@@ -1316,6 +1320,79 @@ def thin_conv3d_phase(torch, dev):
     return res
 
 
+SAME_SHAPES = ((1, 48, 128, 128, 128), (1, 96, 128, 128, 128), (1, 48, 64, 64, 64),
+               (1, 96, 64, 64, 64))
+
+
+def same_conv3d_phase(torch, dev):
+    """The 48-output-channel same convolution (csrc/same_conv3d.cu) at Swin
+    UNETR's four shapes, (1, C, S, S, S) -> 48 channels in bf16, C 48 and
+    96, S 128 and 64: within one bf16 rounding of its plain version (an
+    exact sum rounded once) on the same channels_last_3d inputs, timed
+    against cuDNN's F.conv3d(padding=1) (the sm80 kernel it replaces). Its
+    bound: the products at the bf16 tensor-core rate (input read and
+    output written once take less than half that). Then one
+    published-width bf16 Swin UNETR forward of one 128^3 window, the
+    launch counts reset just before it: 7 same_conv3d, 1 thin_conv3d."""
+    import torch.nn.functional as F
+
+    from multimodal_segmentation_torch import config
+    from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.ops import cuda_kernels
+    from multimodal_segmentation_torch.ops.same_conv import (
+        pack_weight,
+        same_conv3d,
+        same_conv3d_plain,
+    )
+
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(25)
+    eps = torch.finfo(torch.bfloat16).eps
+    for shape in SAME_SHAPES:
+        n, c, d, h, w = shape
+        x = torch.randn(*shape, device=dev, generator=g).bfloat16().contiguous(
+            memory_format=torch.channels_last_3d)
+        wt = (torch.randn(48, c, 3, 3, 3, device=dev, generator=g) / (27 * c) ** 0.5).bfloat16()
+        wp = pack_weight(wt)
+        wcl = wt.contiguous(memory_format=torch.channels_last_3d)
+        with torch.no_grad():
+            got, ref = same_conv3d(x, wt, wp).float(), same_conv3d_plain(x, wp).float()
+            torch.cuda.synchronize()
+            gap = (got - ref).abs()
+            check(bool((gap <= eps * ref.abs() + 1e-3).all()),
+                  "same_conv3d %s differs from its plain version by %g" % (shape, gap.max().item()))
+            err = gap.max().item()
+            del got, ref, gap
+            flops = 2 * 27 * c * 48 * n * d * h * w
+            bufs = rotating(lambda: x.clone(memory_format=torch.channels_last_3d), x.numel() * 2)
+            row = measure(bufs, lambda b: same_conv3d(b, wt, wp), lambda b: same_conv3d_plain(b, wp),
+                          lambda b: F.conv3d(b, wcl, padding=1),
+                          work_bound(x.numel() * 2 + n * 48 * d * h * w * 2, 0, bf16_flops=flops),
+                          plain_iters=2)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        row["library_bound_share"] = row["bound_ms"] / row["library_device_ms"]
+        res[str(shape)] = {"shape": list(shape), "max_abs_err": err, **row}
+        del bufs, x, wt, wp, wcl
+        torch.cuda.empty_cache()
+
+    net, _ = Cardiac3DSegmenter(config.swin_unetr_brats(), device=dev).init(0)
+    x = torch.rand(1, 4, 128, 128, 128, device=dev, generator=g).bfloat16()
+    with torch.inference_mode():
+        net(x)
+        torch.cuda.synchronize()
+        cuda_kernels.reset_launch_counts()
+        net(x)
+        torch.cuda.synchronize()
+    launches = cuda_kernels.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(thin_conv3d=1, same_conv3d=7)
+    check(launches == want, "swin window forward launches %s != %s" % (launches, want))
+    res["forward"] = {"windows": 1, "dtype": "bfloat16", "launches": launches}
+    del net, x
+    torch.cuda.empty_cache()
+    return res
+
+
 def launch_path_phase(torch, dev):
     """Host us a call of each part of a wrapper's launch path, on
     round_ste at the training shape (12, 8, 192, 192) f32: the
@@ -1643,7 +1720,7 @@ STEP_LAUNCHES = {
     "mmsdnet_disc": {"tps_warp_fwd": 1, "tps_warp_bwd": 0, "nearest_warp": 2, "round_ste": 2},
 }
 KERNEL_NAMES = ("tps_warp_fwd", "tps_warp_bwd", "nearest_warp", "round_ste", "tps_flow_dbg",
-                "bn_epilogue", "thin_conv3d")
+                "bn_epilogue", "thin_conv3d", "same_conv3d")
 
 
 def epilogues(conf):
@@ -1879,7 +1956,7 @@ def lockstep_phase(torch, device):
         want = {"tps_warp_fwd": 2 * n, "tps_warp_bwd": n, "nearest_warp": 3 * n,
                 "round_ste": 2 * n, "tps_flow_dbg": 0,
                 "bn_epilogue": n * epilogues(config.tiny_test_config("dafnet"))["dafnet_step"],
-                "thin_conv3d": 0}
+                "thin_conv3d": 0, "same_conv3d": 0}
         check(launches == want, "lockstep launches %s != %s" % (launches, want))
     return {"config": "tiny", "device": str(device), "steps": LOCKSTEP_STEPS, "seconds": seconds,
             "max_rel_divergence": float(rel.max()), "mean_rel_divergence": float(rel.mean()),
@@ -3531,6 +3608,7 @@ def kernels_phase(torch, dev):
         "round_ste": round_ste_phase(torch, dev),
         "bn_epilogue": bn_epilogue_phase(torch, dev),
         "thin_conv3d": thin_conv3d_phase(torch, dev),
+        "same_conv3d": same_conv3d_phase(torch, dev),
         "launch_path": launch_path_phase(torch, dev),
         "flow": flow_phase(torch, dev),
         "nearest_warp_3d": nearest_warp_3d_phase(torch, dev),
@@ -3654,6 +3732,7 @@ def summary(rows, main_dtype):
                           for n in exp3d["launches"]},
         "warp-general": kern["warp_general"]["launches"],
         "unet3d-forward": kern["thin_conv3d"]["forward"]["launches"],
+        "swin-forward": kern["same_conv3d"]["forward"]["launches"],
         **{"train-mmsdnet-remat-" + k: v["launches"]
            for k, v in rows["train-mmsdnet-remat"].items()},
         "fused-adam": rows["fused-adam"]["launches"],
@@ -3685,6 +3764,8 @@ def summary(rows, main_dtype):
         "bn_epilogue": {key: row for key, row in kern["bn_epilogue"].items()
                         if key != "76x64x192x192_bfloat16"},
         "thin_conv3d": {"(2, 3, 116, 132, 132) bfloat16": kern["thin_conv3d"]["B=2"]},
+        "same_conv3d": {"%s bfloat16" % (s,): kern["same_conv3d"][str(s)]
+                        for s in SAME_SHAPES[:1] + SAME_SHAPES[2:]},
     }
     out = []
     for name, source, replaces, k, work in (
@@ -3705,7 +3786,11 @@ def summary(rows, main_dtype):
              "ReLU on: the up path's last level of a 38-slice study in serving"),
             ("thin_conv3d", "thin_conv3d.cu", "none: cuDNN has only a legacy kernel for 3 "
              "input channels", kern["thin_conv3d"]["B=16"], "(16, 3, 116, 132, 132) -> 32 "
-             "bfloat16: the 3D U-Net's first convolution on a serving forward's tiles")):
+             "bfloat16: the 3D U-Net's first convolution on a serving forward's tiles"),
+            ("same_conv3d", "same_conv3d.cu", "none: cuDNN runs these shapes in an sm80 "
+             "kernel at 12-19 % of the bf16 peak", kern["same_conv3d"][str(SAME_SHAPES[1])],
+             "(1, 96, 128, 128, 128) -> 48 bfloat16: Swin UNETR decoder1's first "
+             "convolution of a window")):
         out.append({
             "name": name,
             "route": "cuda",

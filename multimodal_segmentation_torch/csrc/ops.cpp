@@ -2,7 +2,8 @@
 // registered with TORCH_LIBRARY for the CUDA dispatch key.
 //
 // Each kernel source (tps_warp.cu, tps_warp_bwd.cu, nearest_warp.cu,
-// round_ste.cu, tps_flow_dbg.cu, bn_epilogue.cu, thin_conv3d.cu) keeps a
+// round_ste.cu, tps_flow_dbg.cu, bn_epilogue.cu, thin_conv3d.cu,
+// same_conv3d.cu) keeps a
 // plain C entry point; this file checks the tensors, allocates the outputs
 // with the caching allocator and calls the entry point, in one call from
 // Python.
@@ -48,6 +49,8 @@ int bn_epilogue(const void* c, void* y, long long n, int inner, int C, const voi
                 float eps, int relu, int elem_bytes, void* stream);
 int thin_conv3d(const void* x, const void* wp, void* y, int N, int C, int D, int H, int W,
                 int K, void* stream);
+int same_conv3d(const void* x, const void* wp, void* y, int N, int C, int D, int H, int W,
+                void* stream);
 }
 
 namespace {
@@ -325,6 +328,37 @@ at::Tensor op_thin_conv3d(const at::Tensor& x, const at::Tensor& wp, int64_t K,
   return out;
 }
 
+// x: (N, C, D, H, W) bf16 CUDA tensor, C 48 or 96, contiguous in
+// channels_last_3d (NDHWC in memory), 16-byte aligned; wp: (C / 16, 27, 2,
+// 6, 8, 8) contiguous bf16, 16-byte aligned
+at::Tensor op_same_conv3d(const at::Tensor& x, const at::Tensor& wp, int64_t stream) {
+  const char* name = "same_conv3d";
+  TORCH_CHECK_VALUE(x.is_cuda(), name, ": x must be a CUDA tensor, got ", x.device());
+  TORCH_CHECK_VALUE(x.scalar_type() == at::kBFloat16, name, ": x must be bfloat16, got ",
+                    x.scalar_type());
+  TORCH_CHECK_VALUE(x.dim() == 5 && x.is_contiguous(at::MemoryFormat::ChannelsLast3d), name,
+                    ": x must be an (N, C, D, H, W) contiguous in channels_last_3d, got ",
+                    x.sizes(), " strides ", x.strides());
+  TORCH_CHECK_VALUE(reinterpret_cast<uintptr_t>(x.data_ptr()) % 16 == 0, name,
+                    ": x must be 16-byte aligned");
+  const int64_t N = x.size(0), C = x.size(1), D = x.size(2), H = x.size(3), W = x.size(4);
+  TORCH_CHECK_VALUE((C == 48 || C == 96) && N >= 1 && D >= 1 && H >= 1 && W >= 1 &&
+                        N * D * H * W * C <= INT32_MAX,
+                    name, ": unsupported x shape ", x.sizes());
+  TORCH_CHECK_VALUE(wp.device() == x.device() && wp.scalar_type() == x.scalar_type() &&
+                        wp.sizes() == at::IntArrayRef({C / 16, 27, 2, 6, 8, 8}) &&
+                        wp.is_contiguous() &&
+                        reinterpret_cast<uintptr_t>(wp.data_ptr()) % 16 == 0,
+                    name, ": wp must be a contiguous 16-byte aligned (", C / 16,
+                    ", 27, 2, 6, 8, 8) ", x.scalar_type(), " on ", x.device(), ", got ",
+                    wp.sizes(), " ", wp.scalar_type(), " on ", wp.device());
+  at::Tensor out = at::empty({N, 48, D, H, W}, x.options(), at::MemoryFormat::ChannelsLast3d);
+  launched(same_conv3d(x.data_ptr(), wp.data_ptr(), out.data_ptr(), i32(N), i32(C), i32(D),
+                       i32(H), i32(W), stream_of(stream)),
+           name);
+  return out;
+}
+
 }  // namespace
 
 TORCH_LIBRARY(mmseg_cuda, m) {
@@ -341,6 +375,7 @@ TORCH_LIBRARY(mmseg_cuda, m) {
       "bn_epilogue(Tensor c, Tensor cbias, Tensor mean, Tensor var, Tensor weight, "
       "Tensor beta, float eps, bool relu, int stream) -> Tensor");
   m.def("thin_conv3d(Tensor x, Tensor wp, int K, int stream) -> Tensor");
+  m.def("same_conv3d(Tensor x, Tensor wp, int stream) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
@@ -353,4 +388,5 @@ TORCH_LIBRARY_IMPL(mmseg_cuda, CUDA, m) {
   m.impl("tps_flow_dbg", &op_tps_flow_dbg);
   m.impl("bn_epilogue", &op_bn_epilogue);
   m.impl("thin_conv3d", &op_thin_conv3d);
+  m.impl("same_conv3d", &op_same_conv3d);
 }

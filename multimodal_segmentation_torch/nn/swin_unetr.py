@@ -56,8 +56,11 @@ channels-last views already) and the 5-D parameters are made so
 convolutions are the 3D U-Net's modules (nn/unet3d.py): ValidConv3d of
 the input zero-padded by one voxel for the 3^3 ones, so that enc0's
 first, of the 4-channel input, runs as the thin-input kernel
-(ops/thin_conv.py) where _thin_input takes it; UpConv3d for the
-transposed ones; PointwiseConv3d for the 1^3 ones and the head.
+(ops/thin_conv.py) where _thin_input takes it, and the seven with 48
+output channels (encoder1's second, encoder2's, decoder2's and
+decoder1's) as the same-convolution kernel (ops/same_conv.py) where
+_same_c48 takes them; UpConv3d for the transposed ones; PointwiseConv3d
+for the 1^3 ones and the head.
 
 Window attention runs through F.scaled_dot_product_attention, on the
 card its memory-efficient kernel (softmax in float32), the bias and mask
@@ -346,9 +349,10 @@ def _norm(x):
 
 class UnetResBlock(nn.Module):
     """conv1 and conv2 'same' 3^3 convolutions (nn/unet3d.py::ValidConv3d of
-    the input zero-padded by one voxel: channels_last_3d on the card, and
-    enc0's 4-channel first one the thin-input kernel there), conv3 the
-    1^3 one of the residual where the widths differ."""
+    the input zero-padded by one voxel: channels_last_3d on the card,
+    enc0's 4-channel first one the thin-input kernel there and those with
+    48 output channels the same-convolution kernel), conv3 the 1^3 one of
+    the residual where the widths differ."""
 
     def __init__(self, cin, cout, dtype=None):
         super().__init__()

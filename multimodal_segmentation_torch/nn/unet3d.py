@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_segmentation_torch.nn.blocks import BatchNorm, _fan, _variance_scaling_, conv_norm
+from multimodal_segmentation_torch.ops import same_conv
+from multimodal_segmentation_torch.ops.same_conv import same_conv3d
 from multimodal_segmentation_torch.ops.thin_conv import MAX_CHANNELS, thin_conv3d
 from multimodal_segmentation_torch.parallel.collectives import all_reduce_sum
 from multimodal_segmentation_torch.parallel.halo import sharded_conv
@@ -185,6 +187,21 @@ def _thin_input(x, dt):
             and x.shape[-1] % 2 == 0)
 
 
+def _same_c48(conv, x, dt):
+    """Whether ValidConv3d `conv` of x, computing in dt, runs as the
+    48-output-channel same convolution (ops/same_conv.py, an implicit GEMM
+    on wgmma): bf16 on the card, a 3x3x3 kernel with padding 1, 48 output
+    channels and 48 or 96 input channels, for which cuDNN has only an sm80
+    kernel at 12-19 % of the bf16 peak (PERF.md). These are Swin UNETR's
+    seven a window (encoder1's conv2, encoder2's, decoder2's and
+    decoder1's); the 3D U-Net's valid convolutions (padding 0) never are.
+    On the card `cuda_kernels.launch_counts()["same_conv3d"]` counts the
+    calls."""
+    return (x.is_cuda and dt == torch.bfloat16 and conv.kernel_size == (3, 3, 3)
+            and conv.padding == (1, 1, 1) and conv.out_channels == same_conv.OUT_CHANNELS
+            and conv.in_channels in same_conv.IN_CHANNELS)
+
+
 class ValidConv3d(Conv3d):
     """A cubic Conv3d with 'VALID' padding (no padding: each side of the
     output is k - 1 shorter than the input's), or with `padding` p the
@@ -192,14 +209,27 @@ class ValidConv3d(Conv3d):
     'same' 3x3x3 convolutions). `with_bias=False` leaves out the bias, for
     conv_norm's epilogue, which adds it; a convolution whose bias was
     taken away (None) has none. A 3x3x3 one of an input that `_thin_input`
-    takes runs as the thin-input convolution (of the padded input), and
-    the bias is added after it as PyTorch adds cuDNN's. Any other one on
-    the card takes its input in channels_last_3d, as UNet3DCicek runs
-    there (a copy only where the input is not already so)."""
+    takes runs as the thin-input convolution (of the padded input), one
+    that `_same_c48` takes as the same convolution (on weights packed once
+    while the parameter is unchanged), and the bias is added after either
+    as PyTorch adds cuDNN's. Any other one on the card takes its input in
+    channels_last_3d, as UNet3DCicek runs there (a copy only where the
+    input is not already so; the same convolution takes it so too)."""
 
     def __init__(self, in_ch, out_ch, k, init="he_normal", dtype=None, padding=0):
         super().__init__(in_ch, out_ch, k, init=init, dtype=dtype)
         self.padding = (padding,) * 3
+        self._packed = None
+
+    def _packed_weight(self, dt):
+        """The weights in the same convolution's layout, in dt: packed
+        again only when the parameter, its memory or its version changes."""
+        p = self.weight
+        key = (p.data_ptr(), p._version, dt)
+        if self._packed is None or self._packed[0] is not p or self._packed[1] != key:
+            with torch.no_grad():
+                self._packed = (p, key, same_conv.pack_weight(p.to(dt)))
+        return self._packed[2]
 
     def forward(self, x, with_bias=True):
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
@@ -210,6 +240,9 @@ class ValidConv3d(Conv3d):
             if any(self.padding):
                 x = F.pad(x, (self.padding[0],) * 6)
             y = thin_conv3d(x, weight)
+            return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
+        if _same_c48(self, x, dt):
+            y = same_conv3d(x.to(dt), weight, self._packed_weight(dt))
             return y if bias is None else y + bias.view(1, -1, 1, 1, 1)
         layout = torch.channels_last_3d if x.is_cuda else torch.preserve_format
         return F.conv3d(x.to(dt, memory_format=layout), weight, bias, padding=self.padding)

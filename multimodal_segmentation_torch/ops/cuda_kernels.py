@@ -27,7 +27,8 @@ current stream without synchronising and adds one to its kernel's
 imported, so it imports on a machine without CUDA.
 
 The wrappers take CUDA tensors only; their callers (ops/tps.py,
-ops/augment.py, ops/rounding.py, nn/blocks.py::conv_norm, ops/thin_conv.py)
+ops/augment.py, ops/rounding.py, nn/blocks.py::conv_norm, ops/thin_conv.py,
+ops/same_conv.py)
 run the plain PyTorch versions for tensors on the CPU.
 """
 
@@ -87,8 +88,9 @@ ROUND_STE = Kernel("round_ste", "round_ste.cu", ("round_ste",))
 TPS_FLOW_DBG = Kernel("tps_flow_dbg", "tps_flow_dbg.cu", ("tps_flow_dbg",))
 BN_EPILOGUE = Kernel("bn_epilogue", "bn_epilogue.cu", ("bn_epilogue",))
 THIN_CONV3D = Kernel("thin_conv3d", "thin_conv3d.cu", ("thin_conv3d",))
+SAME_CONV3D = Kernel("same_conv3d", "same_conv3d.cu", ("same_conv3d",))
 KERNELS = (TPS_WARP_FWD, TPS_WARP_BWD, NEAREST_WARP, ROUND_STE, TPS_FLOW_DBG, BN_EPILOGUE,
-           THIN_CONV3D)
+           THIN_CONV3D, SAME_CONV3D)
 _lock = threading.Lock()
 
 
@@ -414,3 +416,27 @@ def thin_conv3d(x, wp, K):
     """
     _cuda(x, "thin_conv3d", "x")
     return _launch(THIN_CONV3D, "thin_conv3d", x, x, wp, int(K))
+
+
+def same_conv3d(x, wp):
+    """A 'same' 3x3x3 convolution (stride 1, zero padding 1) of a bf16
+    input with 48 or 96 channels to 48 channels on the GPU
+    (csrc/same_conv3d.cu): an implicit GEMM on wgmma m64n48k16, its halo
+    bricks brought in by TMA (whose out-of-bounds fill is the padding),
+    summed in f32 and rounded once, no bias (its plain version and the
+    weights' packing: ops/same_conv.py). Replaces no TPU kernel.
+    Compute-bound: 260.9 GFLOP at (1, 48, 128^3), 0.264 ms at the bf16
+    peak, against 403 MB read and written.
+
+    Args:
+      x: (N, C, D, H, W) bfloat16 CUDA tensor, C 48 or 96, contiguous in
+        channels_last_3d (NDHWC in memory), 16-byte aligned.
+      wp: (C / 16, 27, 2, 6, 8, 8) contiguous bfloat16, 16-byte aligned:
+        the (48, C, 3, 3, 3) weights in the kernel's B layout
+        (ops/same_conv.py::pack_weight).
+
+    Returns:
+      (N, 48, D, H, W) bfloat16, contiguous in channels_last_3d.
+    """
+    _cuda(x, "same_conv3d", "x")
+    return _launch(SAME_CONV3D, "same_conv3d", x, x, wp)

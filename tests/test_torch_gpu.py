@@ -24,7 +24,7 @@ from multimodal_segmentation_torch.config import (
 )
 from multimodal_segmentation_torch.models import build_model
 from multimodal_segmentation_torch.nn import blocks
-from multimodal_segmentation_torch.ops import augment, cuda_kernels, epilogue, thin_conv, tps
+from multimodal_segmentation_torch.ops import augment, cuda_kernels, epilogue, same_conv, thin_conv, tps
 from multimodal_segmentation_torch.ops.resample import bilinear_sample
 from multimodal_segmentation_torch.train import (
     DAFNetSteps,
@@ -910,6 +910,73 @@ def test_thin_conv3d_gradients_on_the_card(cuda):
             gap.max().item()
 
 
+
+@pytest.mark.parametrize("N, C, D, H, W", [
+    (1, 48, 128, 128, 128), (1, 96, 128, 128, 128), (1, 48, 64, 64, 64), (1, 96, 64, 64, 64),
+    (1, 48, 5, 7, 9), (2, 96, 3, 4, 70), (1, 48, 9, 13, 130), (2, 48, 7, 6, 65),
+    (1, 96, 1, 1, 1),
+])
+def test_same_conv3d_kernel_matches_cudnn(cuda, N, C, D, H, W):
+    """The 48-output-channel same convolution's kernel against cuDNN's
+    F.conv3d(padding=1) in bf16 on the same channels_last_3d input, at the
+    four shapes of Swin UNETR's seven convolutions a window and at odd
+    extents (W, H and D that no tile divides, 1-voxel axes, two samples).
+    Both sum the bf16 products in f32 on the tensor cores, in other
+    orders, and round once to bf16: each output is within one bf16
+    rounding of the other's, |gap| <= eps |ref| (eps the bf16 spacing at
+    1), with 1e-3 besides for outputs near 0 and at a power of two, where
+    one rounding step below is half of one above. Against the plain
+    version (the exact sum rounded once) the same, at the shapes it
+    computes in a few seconds. channels_last_3d out; bit for bit the same
+    on a second call; one launch a call."""
+    dtype = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(C + D + H + W)
+    x = torch.randn(N, C, D, H, W, device=cuda, generator=g).to(dtype).contiguous(
+        memory_format=torch.channels_last_3d)
+    w = (torch.randn(48, C, 3, 3, 3, device=cuda, generator=g) / (27 * C) ** 0.5).to(dtype)
+    cuda_kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = same_conv.same_conv3d(x, w)
+        again = same_conv.same_conv3d(x, w)
+        torch.cuda.synchronize()
+    assert cuda_kernels.launch_counts()["same_conv3d"] == 2
+    assert got.shape == (N, 48, D, H, W) and got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last_3d) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    refs = [F.conv3d(x, w.contiguous(memory_format=torch.channels_last_3d), padding=1)]
+    if x.numel() < 2 ** 22:
+        refs.append(same_conv.same_conv3d_plain(x, same_conv.pack_weight(w)))
+    eps = torch.finfo(dtype).eps
+    for ref in refs:
+        gap = (got.float() - ref.float()).abs()
+        assert (gap <= eps * ref.float().abs() + 1e-3).all(), gap.max().item()
+
+
+def test_same_conv3d_refuses_what_it_is_not_built_for(cuda):
+    """The operator raises ValueError for what it is not built for: fp16,
+    64 input channels, an input that is not channels_last_3d, one not
+    16-byte aligned, weights not packed for its channels. The wrapper
+    copies an NCDHW or misaligned input to channels_last_3d first, so
+    through it those two run."""
+    def case(C=48, dtype=torch.bfloat16):
+        x = torch.zeros(1, C, 3, 4, 5, device=cuda, dtype=dtype)
+        return x.contiguous(memory_format=torch.channels_last_3d), same_conv.pack_weight(
+            torch.zeros(48, C, 3, 3, 3, device=cuda, dtype=dtype))
+
+    x, wp = case()
+    assert cuda_kernels.same_conv3d(x, wp).shape == (1, 48, 3, 4, 5)
+    bad = [case(dtype=torch.float16), case(C=64), (x.contiguous(), wp), (x, case(C=96)[1])]
+    shifted = torch.zeros(x.numel() + 1, device=cuda, dtype=x.dtype)[1:]
+    bad.append((shifted.view(1, 3, 4, 5, 48).permute(0, 4, 1, 2, 3), wp))
+    assert bad[-1][0].is_contiguous(memory_format=torch.channels_last_3d)
+    for bx, bwp in bad:
+        with pytest.raises(ValueError, match="same_conv3d"):
+            cuda_kernels.same_conv3d(bx, bwp)
+    w = torch.zeros(48, 48, 3, 3, 3, device=cuda, dtype=x.dtype)
+    for xx in (x.contiguous(), bad[-1][0]):
+        assert same_conv.same_conv3d(xx, w).shape == (1, 48, 3, 4, 5)
+
+
 _THIN_PROFILE = r"""
 import json, torch
 from torch.profiler import ProfilerActivity, profile
@@ -1035,12 +1102,17 @@ def test_swin_unetr_spans_on_the_card(cuda):
     second profiling session in the file's process can record nothing,
     PERF.md): device time lands in `predict3d.attention` and
     `predict3d.resblock` as well as in `predict3d.net`; the first
-    convolution runs as the thin-input kernel, once a window; nothing that
-    the benchmark files under convolution runs inside an attention span;
-    no kernel is one of cuDNN's layout transforms."""
+    convolution runs as the thin-input kernel, once a window, and the seven
+    48-output-channel ones as the same-convolution kernel, which the
+    benchmark files under convolution; nothing that it files so runs
+    inside an attention span; no kernel is one of cuDNN's layout
+    transforms, nor the sm80 256 x 32 fprop kernel that cuDNN ran those
+    seven in."""
     import json
     import subprocess
     import sys
+
+    from benchmark.harness.trace import kernel_kind
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = subprocess.run([sys.executable, "-c", _SWIN_PROFILE], cwd=repo, capture_output=True,
@@ -1051,16 +1123,24 @@ def test_swin_unetr_spans_on_the_card(cuda):
     for owner in ("predict3d.attention", "predict3d.resblock", "predict3d.net"):
         assert got["device_s"].get(owner, 0) > 0, got["device_s"]
     assert got["launches"]["thin_conv3d"] == 2
+    assert got["launches"]["same_conv3d"] == 14
+    same = [n for n in got["names"] if "same_conv3d_c48_kernel" in n]
+    assert same and all(kernel_kind(n) == "convolution" for n in same), got["names"]
     assert "convolution" not in got["kinds"]["predict3d.attention"], got["kinds"]
     assert not any("nchwToNhwc" in n or "nhwcToNchw" in n for n in got["names"]), got["names"]
+    assert not any("sm80_xmma_fprop" in n and "256x32x32" in n for n in got["names"]), \
+        got["names"]
 
 
-def test_swin_unetr_published_forward_on_the_card(cuda):
+def test_swin_unetr_published_forward_on_the_card(cuda, monkeypatch):
     """A published-width bf16 forward of 4 windows of 128^3 x 4 (the
-    benchmark maker's weights, rendered studies): 4 thin-input launches (enc0's first convolution, one a window); the
-    sigmoid probabilities' mean gap from the float32 reference's between a
-    quarter and twice the gap of the reference rounding at bf16, and under
-    half of the reference's at fp8."""
+    benchmark maker's weights, rendered studies): 4 thin-input launches
+    (enc0's first convolution, one a window) and 28 of the same
+    convolution (seven a window), each of whose inputs is channels_last_3d
+    already, so that none is copied; the sigmoid probabilities' mean gap
+    from the float32 reference's between a quarter and twice the gap of
+    the reference rounding at bf16, and under half of the reference's at
+    fp8."""
     import types
 
     from benchmark.reference.precision import set_precision
@@ -1068,7 +1148,15 @@ def test_swin_unetr_published_forward_on_the_card(cuda):
     from benchmark.traffic import swin_weights, volumes
     from multimodal_segmentation_torch.config import swin_unetr_brats
     from multimodal_segmentation_torch.models.volumetric import Cardiac3DSegmenter
+    from multimodal_segmentation_torch.nn import unet3d
 
+    layouts = []
+
+    def recorded(x, weight, wp=None):
+        layouts.append(x.is_contiguous(memory_format=torch.channels_last_3d))
+        return same_conv.same_conv3d(x, weight, wp)
+
+    monkeypatch.setattr(unet3d, "same_conv3d", recorded)
     conf = swin_unetr_brats()
     ns = types.SimpleNamespace(**dataclasses.asdict(conf))
     state = swin_weights.make_weights(MODEL, ns, {"depths": [155, 155], "hw": [240, 240],
@@ -1083,6 +1171,7 @@ def test_swin_unetr_published_forward_on_the_card(cuda):
         torch.cuda.synchronize()
         launches = cuda_kernels.launch_counts()
     assert launches["thin_conv3d"] == 4, launches
+    assert launches["same_conv3d"] == 28 and layouts == [True] * 28, (launches, layouts)
     del net
     refs = {}
     for precision in ("float32", "bfloat16", "fp8"):
@@ -1162,7 +1251,8 @@ def test_full_width_train_step_runs_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0,
+                                            "same_conv3d": 0}
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert all(torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
 
@@ -1186,7 +1276,8 @@ def test_full_width_bf16_train_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0,
+                                            "same_conv3d": 0}
     assert dtypes == [torch.bfloat16, torch.bfloat16]
     assert all(v.dtype == torch.float32 and torch.isfinite(v).item() for v in metrics.values())
     state = [*model.parameters(), *model.buffers()]
@@ -1199,7 +1290,8 @@ def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     """One tiny executor epoch (3 steps, validation, image callback,
     checkpoint) on the card: every kernel of the path launches, B4 among
     them (the flow-stage dump B5 is on no training path, the 3D U-Net's
-    thin-input convolution on no 2-D path), and
+    thin-input convolution and Swin UNETR's same convolution on no 2-D
+    path), and
     after the first step, which copies ops/tps.py's constants to the card
     once, no CPU tensor of more than one element enters any operation of a
     step (0-d ones are Python scalars and Adam's step counts)."""
@@ -1240,6 +1332,7 @@ def test_tiny_executor_epoch_on_the_card(cuda, tmp_path):
     assert ts.step == 3 and ts.epoch == 0
     assert launches.pop("tps_flow_dbg") == 0
     assert launches.pop("thin_conv3d") == 0
+    assert launches.pop("same_conv3d") == 0
     assert all(n > 0 for n in launches.values()), launches
     assert launches["round_ste"] >= 2 * 3 + 6   # 3 steps, 6 validation predictions
     assert on_cpu == []
@@ -1407,7 +1500,8 @@ def test_full_width_automated_step_runs_through_the_kernels(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 2, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 2,
-                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0}
+                                            "tps_flow_dbg": 0, "bn_epilogue": 32, "thin_conv3d": 0,
+                                            "same_conv3d": 0}
     assert batches == [36, 12]
     assert all(torch.isfinite(v).item() for v in metrics.values()), metrics
     assert any(not torch.equal(a, b) for a, b in zip(model.balancer.parameters(), bal))
@@ -1437,7 +1531,7 @@ def test_full_width_mmsdnet_steps_run_through_the_kernels(cuda, dtype):
     assert cuda_kernels.launch_counts() == {"tps_warp_fwd": 3, "tps_warp_bwd": 1,
                                             "nearest_warp": 3, "round_ste": 6,
                                             "tps_flow_dbg": 0, "bn_epilogue": 44 + 46,
-                                            "thin_conv3d": 0}
+                                            "thin_conv3d": 0, "same_conv3d": 0}
     metrics.update(d_metrics)
     assert sorted(metrics) == ["KL", "adv_M", "dis_M", "loss", "rec_X", "rec_Z",
                                "supervised_Mask"]
@@ -1633,7 +1727,8 @@ def test_nccl_world_size_one_step_equals_the_mesh_free_step(cuda):
     for k, _ in model.named_parameters():
         assert (sd1[k] - sd0[k]).abs().max().item() <= 2.001 * 4 * lr, k
     assert l0 == l1 == {"tps_warp_fwd": 4, "tps_warp_bwd": 2, "nearest_warp": 6, "round_ste": 4,
-                        "tps_flow_dbg": 0, "bn_epilogue": 2 * 18, "thin_conv3d": 0}
+                        "tps_flow_dbg": 0, "bn_epilogue": 2 * 18, "thin_conv3d": 0,
+                        "same_conv3d": 0}
 
 
 # ------------------------------------------ B1's general entry, tensor parallelism
